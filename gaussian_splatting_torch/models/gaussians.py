@@ -1,0 +1,106 @@
+"""Gaussian model: fixed-capacity pre-activation parameters + alive mask.
+
+Counterpart of ``gaussian_splatting_tpu/models/gaussians.py``.  Live
+Gaussians occupy slots marked by ``alive``; dead slots keep the JAX
+package's empty values (logit -10, identity rotation) and render as fully
+transparent, so they become sentinel instances exactly as in JAX and the
+instance counts of the two packages agree.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from gaussian_splatting_torch import resolve_device
+from gaussian_splatting_torch.data.ply import load_gaussian_ply
+from gaussian_splatting_torch.ops.sh import num_sh_coeffs
+
+
+class GaussianModel(nn.Module):
+    """Pre-activation parameters (log-scales, opacity logits, unnormalized
+    wxyz quaternions, SH DC + rest), each of length ``capacity``."""
+
+    def __init__(
+        self,
+        means3d: torch.Tensor,  # (C, 3)
+        features_dc: torch.Tensor,  # (C, 1, 3)
+        features_rest: torch.Tensor,  # (C, K-1, 3)
+        opacities: torch.Tensor,  # (C,) logits
+        scales: torch.Tensor,  # (C, 3) log-scales
+        quats: torch.Tensor,  # (C, 4)
+        alive: torch.Tensor,  # (C,) bool
+        *,
+        max_sh_degree: int,
+        sh_degree: int,
+    ):
+        super().__init__()
+        self.means3d = nn.Parameter(means3d)
+        self.features_dc = nn.Parameter(features_dc)
+        self.features_rest = nn.Parameter(features_rest)
+        self.opacities = nn.Parameter(opacities)
+        self.scales = nn.Parameter(scales)
+        self.quats = nn.Parameter(quats)
+        self.register_buffer("alive", alive)
+        self.max_sh_degree = int(max_sh_degree)
+        self.sh_degree = int(sh_degree)  # active degree (<= max_sh_degree)
+
+    @classmethod
+    def empty(cls, capacity: int, max_sh_degree: int, *, device=None) -> "GaussianModel":
+        dev = resolve_device(device)
+        K = num_sh_coeffs(max_sh_degree)
+        quats = torch.zeros((capacity, 4), device=dev)
+        quats[:, 0] = 1.0
+        return cls(
+            means3d=torch.zeros((capacity, 3), device=dev),
+            features_dc=torch.zeros((capacity, 1, 3), device=dev),
+            features_rest=torch.zeros((capacity, K - 1, 3), device=dev),
+            opacities=torch.full((capacity,), -10.0, device=dev),
+            scales=torch.zeros((capacity, 3), device=dev),
+            quats=quats,
+            alive=torch.zeros((capacity,), dtype=torch.bool, device=dev),
+            max_sh_degree=max_sh_degree,
+            sh_degree=max_sh_degree,
+        )
+
+    @property
+    def capacity(self) -> int:
+        return self.means3d.shape[0]
+
+    def activated_params(self) -> Tuple[torch.Tensor, ...]:
+        """Rasterizer inputs: (means, scales, unit quats, opacities, sh) with
+        SH coefficients above the active degree zeroed and dead slots at
+        opacity 0 (JAX ``train/loop.py::_activated_params``)."""
+        sh = torch.cat([self.features_dc, self.features_rest], dim=1)
+        K = sh.shape[1]
+        degs = torch.floor(
+            torch.sqrt(torch.arange(K, dtype=torch.float32, device=sh.device))
+        ).to(torch.int32)
+        sh = torch.where((degs <= self.sh_degree)[None, :, None], sh, 0.0)
+        q = self.quats
+        return (
+            self.means3d,
+            torch.exp(self.scales),
+            q / torch.sqrt((q * q).sum(dim=-1, keepdim=True)),
+            torch.sigmoid(self.opacities) * self.alive,
+            sh,
+        )
+
+
+def load_model_ply(
+    path: str, *, max_sh_degree: int, capacity: Optional[int] = None, device=None
+) -> GaussianModel:
+    """Read a ``point_cloud.ply`` snapshot into a model padded to the JAX
+    package's capacity (``int(n * 1.2) + 1024``)."""
+    data = load_gaussian_ply(path)
+    n = data["means3d"].shape[0]
+    capacity = capacity or int(n * 1.2) + 1024
+    model = GaussianModel.empty(capacity, max_sh_degree, device=device)
+    with torch.no_grad():
+        for name in ("means3d", "features_dc", "features_rest", "opacities", "scales", "quats"):
+            getattr(model, name)[:n] = torch.from_numpy(np.asarray(data[name]))
+        model.alive[:n] = True
+    return model

@@ -1,0 +1,140 @@
+"""K2 blend forward: per-tile front-to-back alpha blending.
+
+Counterpart of the forward half of ``gaussian_splatting_tpu/ops/
+blend_pallas.py``.  The output layout, constants and the meaning of NB (the
+absolute sorted-stream position at which a pixel's transmittance would fall
+below ``T_EPS``, else ``NB_BIG``) are kept exactly: the backward slice
+depends on them.  Instead of the (16, cap) sorted field records of the TPU
+version, the blend gathers each instance's fields through the sorted owner
+index from a per-Gaussian (P, 10) table.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gaussian_splatting_torch import _kernels
+
+ALPHA_MIN = 1.0 / 255.0
+ALPHA_CAP = 0.99
+T_EPS = 1e-4
+POWER_EPS = 1e-4  # eligibility slack over the exact power <= 0 test
+
+# Per-Gaussian field columns (the TPU version's record rows F_X..F_INVD)
+F_X, F_Y, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B, F_INVD = range(10)
+NUM_FIELDS = 10
+
+# Packed output columns: (num_tiles, PIX, OUT_COLS)
+O_R, O_G, O_B, O_T, O_INVD, O_NB = range(6)
+OUT_COLS = 8
+NB_BIG = float(1 << 24)
+CT_COLS = O_INVD + 1  # the five columns the render consumes
+
+
+def blend_forward(
+    sorted_owner: torch.Tensor,  # (cap,) int32 Gaussian at each sorted position
+    tile_starts: torch.Tensor,  # (num_tiles,) int32
+    tile_ends: torch.Tensor,  # (num_tiles,) int32
+    fields: torch.Tensor,  # (P, NUM_FIELDS) f32
+    *,
+    grid_x: int,
+    tile_w: int = 16,
+    tile_h: int = 16,
+) -> torch.Tensor:
+    """Packed (num_tiles, tile_w*tile_h, OUT_COLS) blend records.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if fields.device.type == "cpu":
+        return blend_forward_plain(
+            sorted_owner, tile_starts, tile_ends, fields,
+            grid_x=grid_x, tile_w=tile_w, tile_h=tile_h,
+        )
+    _kernels.check_cuda("blend_forward", sorted_owner, tile_starts, tile_ends, fields)
+    if (tile_w, tile_h) != (16, 16):
+        raise ValueError("blend_forward kernel: tiles must be 16x16")
+    if sorted_owner.dtype != torch.int32 or tile_starts.dtype != torch.int32 or (
+        tile_ends.dtype != torch.int32
+    ):
+        raise ValueError("blend_forward: indices must be int32")
+    if fields.dtype != torch.float32 or fields.shape[1:] != (NUM_FIELDS,):
+        raise ValueError("blend_forward: fields must be (P, 10) float32")
+    num_tiles = tile_starts.shape[0]
+    out = torch.empty(
+        (num_tiles, tile_w * tile_h, OUT_COLS), dtype=torch.float32,
+        device=fields.device,
+    )
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    _kernels.launch(
+        "blend_forward", "gs_blend_forward", [vp] * 4 + [ci] * 2 + [vp] * 2,
+        sorted_owner.data_ptr(), tile_starts.data_ptr(), tile_ends.data_ptr(),
+        fields.data_ptr(), num_tiles, grid_x, out.data_ptr(),
+        _kernels.current_stream(fields.device),
+    )
+    return out
+
+
+def blend_forward_plain(
+    sorted_owner: torch.Tensor,
+    tile_starts: torch.Tensor,
+    tile_ends: torch.Tensor,
+    fields: torch.Tensor,
+    *,
+    grid_x: int,
+    tile_w: int = 16,
+    tile_h: int = 16,
+) -> torch.Tensor:
+    """Plain PyTorch twin: step k handles the k-th instance of every tile at
+    once, one operation per pass in the kernel's order (so on the card the
+    two agree to the bit unless the compiler reorders a sum)."""
+    dev = fields.device
+    num_tiles = tile_starts.shape[0]
+    pix = tile_w * tile_h
+    tid = torch.arange(num_tiles, device=dev)
+    lp = torch.arange(pix, device=dev)
+    px = ((tid % grid_x) * tile_w)[:, None] + (lp % tile_w)[None, :]
+    py = ((tid // grid_x) * tile_h)[:, None] + (lp // tile_w)[None, :]
+    px = px.to(torch.float32)
+    py = py.to(torch.float32)
+
+    starts = tile_starts.long()
+    counts = (tile_ends.long() - starts).clamp(min=0)
+    steps = int(counts.max()) if num_tiles else 0
+
+    T = torch.ones((num_tiles, pix), dtype=torch.float32, device=dev)
+    C = torch.zeros((num_tiles, pix, 3), dtype=torch.float32, device=dev)
+    D = torch.zeros_like(T)
+    NB = torch.full_like(T, NB_BIG)
+    done = torch.zeros((num_tiles, pix), dtype=torch.bool, device=dev)
+    last = max(sorted_owner.shape[0] - 1, 0)
+    for k in range(steps):
+        # every 32 steps, stop once each tile is saturated or exhausted
+        if k % 32 == 0 and k and bool(
+            (done.all(dim=1) | (counts <= k)).all()
+        ):
+            break
+        live = (counts > k)[:, None]
+        pos = starts + k
+        # tiles past their range read some in-bounds row; ``live`` masks it
+        g = sorted_owner[pos.clamp(max=last)].long().clamp(max=fields.shape[0] - 1)
+        f = fields[g]  # (tiles, 10)
+        dx = f[:, F_X, None] - px
+        dy = f[:, F_Y, None] - py
+        power = -0.5 * (f[:, F_CA, None] * dx * dx + f[:, F_CC, None] * dy * dy) - (
+            f[:, F_CB, None] * dx * dy
+        )
+        alpha = torch.clamp(f[:, F_OP, None] * torch.exp(power), max=ALPHA_CAP)
+        eligible = live & ~done & (power <= POWER_EPS) & (alpha >= ALPHA_MIN)
+        test_T = T * (1.0 - alpha)
+        bad = eligible & (test_T < T_EPS)
+        contrib = eligible & ~bad
+        w = torch.where(contrib, alpha * T, 0.0)
+        C = torch.where(contrib[..., None], C + w[..., None] * f[:, None, F_R : F_B + 1], C)
+        D = torch.where(contrib, D + w * f[:, F_INVD, None], D)
+        T = torch.where(contrib, test_T, T)
+        NB = torch.where(bad, pos.to(torch.float32)[:, None], NB)
+        done = done | bad
+
+    zeros = torch.zeros_like(T)
+    return torch.stack([C[..., 0], C[..., 1], C[..., 2], T, D, NB, zeros, zeros], dim=-1)
