@@ -12,16 +12,26 @@ Phases (any failure raises, and the script exits non-zero):
               holding the bench scene (500k Gaussians, SH degree 3) and the
               raster_state.json a trainer leaves: the instance slack that fits
               the worst test view's measured slot demand plus 5%
-  4. main     ``gaussian_splatting_torch.render.main`` renders the 3 test
-              views on the card, once each; every kernel must have launched
-  5. parity   each kernel against its plain PyTorch twin on the main path's
-              inputs, the whole render against the all-plain path, and a
-              small render against the dense oracle
-  6. timing   CUDA-event times of each kernel, its twin and the library
-              yardstick, beside the bound computed from this run's inputs
-  7. profile  one view under torch.profiler: device time of each of the
-              three kernels and of the largest others, and the device's busy
-              share of the wall time
+  4. render path    ``gaussian_splatting_torch.render.main`` renders the 3
+              test views on the card, once each; K1-K3 must have launched
+  5. render parity  K1-K3 against their plain PyTorch twins on the render
+              path's inputs, the whole render against the all-plain path, and
+              a small render against the dense oracle
+  6. render timing  CUDA-event times of K1-K3, their twins and the library
+              yardsticks, beside the bounds computed from this run's inputs
+  7. render profile one view under torch.profiler
+  8. train parity   on the first training step's own inputs (the fixture
+              model with seeded noise, view 0, full width): K4 bitwise, K5
+              and K6 within their tolerances against their twins, the whole
+              field gradient against the all-twin path, and a small scene's
+              gradients against the dense oracle's autograd
+  9. train path     ``train.step.train_step`` 13 times over the 3 views (the
+              last one profiled), then ``densify_step`` and
+              ``opacity_reset_step``, against the fixture model's own renders;
+              no overflow, finite losses, each view's loss falls, K1-K6 launch
+ 10. train timing   K4-K6 as in phase 6, on phase 8's inputs
+ 11. bench          bench.py's quantity on the port: forward + backward of
+              sum(image) + sum(invdepth) at 1080p on bench.py's scene, px/s
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a card: without one it exits non-zero
 before printing any result.
@@ -41,8 +51,23 @@ import time
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# (pixel, instance) pair in the blend: ~20 float operations + one expf
-BLEND_OPS_PER_PAIR = 21
+# Float operations per (pixel, instance) pair, counted from the kernels'
+# code (expf counts as one).  A pair "contributes" when its alpha is
+# eligible (power <= POWER_EPS, alpha >= 1/255) and its stream position is
+# below the pixel's NB; other visited pairs only compute alpha.
+# csrc/blend_forward.cu: dx, dy (2), power (9), opacity * expf (2), the
+# 0.99 cap (1), the two eligibility compares (2) on every pair visited;
+# then 1 - alpha, T (1 - alpha), the T_EPS compare (3) on an eligible pair,
+# and the weight and four weighted adds (9) on a contributing one.
+BLEND_VISIT_OPS = 16
+BLEND_ELIGIBLE_OPS = 3
+BLEND_CONTRIB_OPS = 9
+# csrc/blend_backward.cu: alpha as in the forward plus the NB compare (17)
+# on every pair replayed; on a contributing pair q (7), w, w q, the prefix
+# (3), gl (7), T (1), the 9 products of the summed terms (9), and one add
+# into each of the instance's 10 sums (10)
+BLEND_BWD_VISIT_OPS = 17
+BLEND_BWD_CONTRIB_OPS = 7 + 3 + 7 + 1 + 9 + 10
 
 NUM_GAUSSIANS = 500_000
 WIDTH, HEIGHT = 1920, 1080
@@ -51,6 +76,14 @@ ITERATION = 30_000
 TOL_BLEND = 1e-5  # kernel vs twin on the card: RGB, T, inverse depth
 TOL_IMAGE = 2e-4  # whole render vs the all-plain path / the dense oracle
 NB_DIFF_MAX = 1e-4  # share of pixels whose NB may differ (fp rounding at T_EPS)
+# K5 vs its twin, relative to each gradient column's largest magnitude.  The
+# twin repeats every operation and every sum in the kernel's order (built
+# with -fmad=false), so the two should agree to the bit; the tolerance only
+# admits a last-bit difference in a library exp or division.
+TOL_BLEND_BWD = 1e-6
+TOL_GRAD = 3e-4  # gradients vs the all-twin path / the dense oracle, scaled
+RENDER_KERNELS = ("expand", "blend_forward", "untile")
+TRAIN_STEPS = 12  # counted steps over the 3 views, then one profiled step
 
 
 def phase(name):
@@ -65,13 +98,17 @@ def device_phase():
     phase("device")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind} x{count}")
+    print(card())
+    return kind, count
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind} x{count}")
-    print(smi)
-    return kind, count
 
 
 def build_phase():
@@ -186,7 +223,7 @@ def main_path_phase(model_dir, device="cuda"):
     from gaussian_splatting_torch import render as render_cli
     from gaussian_splatting_torch.utils.image import read_image
 
-    phase("main path")
+    phase("render path")
     _kernels.reset_launches()
     records = render_cli.main(["-m", model_dir, "--skip_train", "--device", device])
     launches = dict(_kernels.launches)
@@ -200,9 +237,9 @@ def main_path_phase(model_dir, device="cuda"):
         print(f"  view {r['index']}: {r['seconds'] * 1e3:.1f} ms wall (synchronised), "
               f"slot demand (num_instances) {r['num_instances']}, retries {r['retries']}, "
               f"peak {(r['peak_bytes'] or 0) / 2**20:.0f} MiB, mean pixel {img.mean():.1f}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in RENDER_KERNELS if launches[k] == 0]
     if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
+        raise RuntimeError(f"kernels never launched on the render path: {missing}")
     if any(r["retries"] for r in records):
         raise RuntimeError("a view overflowed the capacity sized from its measured demand")
     return launches
@@ -239,7 +276,7 @@ def parity(model_dir, device="cuda"):
     from gaussian_splatting_torch.render import load_raster_state
     from gaussian_splatting_torch.scene import Scene
 
-    phase("parity at full width")
+    phase("render parity at full width")
     cuda = torch.device(device)
     cfg = load_config(ModelConfig, os.path.join(model_dir, "cfg_args.json"))
     scene = Scene(cfg, load_iteration=-1, device=cuda)
@@ -317,50 +354,93 @@ def parity(model_dir, device="cuda"):
         pairs = int(torch.where(done, nb - starts + 1, ends - starts).sum())
         need = torch.where(done.all(dim=1), nb.max(dim=1).values + 1, ends[:, 0])
         n_read = int((need - starts[:, 0]).sum())
-        print(f"blend pairs visited {pairs}, instances read {n_read}")
+        contrib = contributing_pairs(layout, fields, packed, gx)
+        n_done = int(done.sum())
+        blend_ops = (BLEND_VISIT_OPS * pairs + BLEND_CONTRIB_OPS * contrib
+                     + BLEND_ELIGIBLE_OPS * (contrib + n_done))
+        print(f"blend pairs visited {pairs}, of which contributing {contrib} "
+              f"({100 * contrib / pairs:.2f}%), pixels saturated {n_done}; instances read "
+              f"{n_read}; {blend_ops} float operations")
     return dict(table=table, ekw=ekw, cap_int=cap_int, bargs=bargs, gx=gx, gy=gy,
-                num_tiles=num_tiles, packed=packed, ukw=ukw, pairs=pairs,
+                num_tiles=num_tiles, packed=packed, ukw=ukw, blend_ops=blend_ops,
                 n_read=n_read, err_expand=err_expand, err_blend=err_blend,
                 model=model, camera=camera, slack=slack)
 
 
-def profile_phase(ctx, top=12):
-    """Where one view's time goes: a warm render_camera (one render, no
-    retry) under torch.profiler; the device time of each of the three kernels,
-    the largest other entries, and the device's busy share of the wall time."""
+def contributing_pairs(layout, fields, packed, grid_x, chunk=1 << 15):
+    """(pixel, instance) pairs whose alpha is eligible and whose stream
+    position is below the pixel's NB: each valid slot against its tile's
+    256 pixels, alpha formed as the kernels and their twins form it."""
+    import torch
+
+    from gaussian_splatting_torch.ops import blend as bl
+
+    dev = fields.device
+    lp = torch.arange(256, device=dev)
+    nb = packed[..., bl.O_NB]
+    n = int(layout.n_valid)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for s0 in range(0, n, chunk):
+        pos = torch.arange(s0, min(s0 + chunk, n), dtype=torch.int32, device=dev)
+        tile = torch.searchsorted(layout.tile_ends, pos, right=True)
+        f = fields[layout.sorted_owner[pos].long()]
+        dx = f[:, bl.F_X, None] - (((tile % grid_x) * 16)[:, None] + lp % 16).float()
+        dy = f[:, bl.F_Y, None] - (((tile // grid_x) * 16)[:, None] + lp // 16).float()
+        power = -0.5 * (f[:, bl.F_CA, None] * dx * dx + f[:, bl.F_CC, None] * dy * dy) - (
+            f[:, bl.F_CB, None] * dx * dy)
+        alpha = torch.clamp(f[:, bl.F_OP, None] * torch.exp(power), max=bl.ALPHA_CAP)
+        total += ((power <= bl.POWER_EPS) & (alpha >= bl.ALPHA_MIN)
+                  & (pos.float()[:, None] < nb[tile])).sum()
+    return int(total)
+
+
+def profile_call(fn, kernels, top=12):
+    """``fn`` once under torch.profiler: its synchronised wall time, the
+    device's busy share of it, each named kernel's own device time and the
+    largest other entries.  Returns each kernel's device ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gaussian_splatting_torch import _kernels
-    from gaussian_splatting_torch.config import RasterizeConfig
-    from gaussian_splatting_torch.render import render_camera
-
-    phase("profile")
-    cfg = RasterizeConfig(instance_slack=ctx["slack"])
-    bg = torch.zeros(3, device="cuda")
-    for _ in range(2):
-        render_camera(ctx["model"], ctx["camera"], cfg, bg)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_camera(ctx["model"], ctx["camera"], cfg, bg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies, memsets): CPU ops would
     # count their kernels a second time
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"steady-state view: wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
+    print(f"wall {wall_ms:.3f} ms, device busy {device_ms:.3f} ms "
           f"({100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device ops")
-    for name in _kernels.KERNELS:
+    own_ms = {}
+    for name in kernels:
         own = [e for e in events if f"::{name}_kernel(" in e.key]
         if not own:
             raise RuntimeError(f"profile shows no {name} kernel on the device")
-        print(f"  {name} kernel: {sum(e.self_device_time_total for e in own) / 1e3:.4f} ms "
-              f"device time, x{sum(e.count for e in own)}")
+        own_ms[name] = sum(e.self_device_time_total for e in own) / 1e3
+        print(f"  {name} kernel: {own_ms[name]:.4f} ms device time, x{sum(e.count for e in own)}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
+    return own_ms
+
+
+def profile_phase(ctx):
+    """Where one view's time goes: a warm render_camera (one render, no
+    retry) under torch.profiler."""
+    import torch
+
+    from gaussian_splatting_torch.config import RasterizeConfig
+    from gaussian_splatting_torch.render import render_camera
+
+    phase("render profile")
+    cfg = RasterizeConfig(instance_slack=ctx["slack"])
+    bg = torch.zeros(3, device="cuda")
+    for _ in range(2):
+        render_camera(ctx["model"], ctx["camera"], cfg, bg)
+    torch.cuda.synchronize()
+    print("steady-state view:", end=" ")
+    profile_call(lambda: render_camera(ctx["model"], ctx["camera"], cfg, bg), RENDER_KERNELS)
 
 
 def timing(ctx, launches):
@@ -370,7 +450,7 @@ def timing(ctx, launches):
     from gaussian_splatting_torch.ops import expand as ex
     from gaussian_splatting_torch.ops import untile as ut
 
-    phase("timing")
+    phase("render timing")
     table, ekw, bargs, packed, ukw = (ctx[k] for k in ("table", "ekw", "bargs", "packed", "ukw"))
     gx, gy, num_tiles = ctx["gx"], ctx["gy"], ctx["num_tiles"]
     with torch.no_grad():
@@ -389,7 +469,7 @@ def timing(ctx, launches):
             ctx["err_blend"],
             cuda_ms(lambda: bl.blend_forward(*bargs, grid_x=gx)),
             cuda_ms(lambda: bl.blend_forward_plain(*bargs, grid_x=gx), iters=5, warmup=1),
-            b_bytes, ctx["pairs"] * BLEND_OPS_PER_PAIR, None,
+            b_bytes, ctx["blend_ops"], None,
         ))
         u_bytes = 2 * bl.CT_COLS * WIDTH * HEIGHT * 4
         view = packed.view(gy, gx, 16, 16, bl.OUT_COLS)[..., : bl.CT_COLS]
@@ -449,7 +529,364 @@ def check_small_vs_oracle(cuda):
         raise RuntimeError("kernel render disagrees with the dense oracle")
 
 
+def train_setup(model_dir, seed, device="cuda"):
+    """The training start: the fixture model with seeded noise on means3d,
+    features_dc and opacities (alive slots only), the scene extent from the
+    port's get_nerfpp_norm on the 3 test cameras, and as ground truth the
+    fixture model's own renders of those views."""
+    import torch
+
+    from gaussian_splatting_torch.config import ModelConfig, RasterizeConfig, load_config
+    from gaussian_splatting_torch.data.dataset import get_nerfpp_norm
+    from gaussian_splatting_torch.ops.rasterize import render
+    from gaussian_splatting_torch.render import load_raster_state
+    from gaussian_splatting_torch.scene import Scene
+    from gaussian_splatting_torch.train.step import StepBatch, init_train_state
+
+    dev = torch.device(device)
+    cfg = load_config(ModelConfig, os.path.join(model_dir, "cfg_args.json"))
+    scene = Scene(cfg, load_iteration=-1, device=dev)
+    model = scene.gaussians
+    cams = scene.get_test_cameras()
+    raster = load_raster_state(model_dir, RasterizeConfig())
+    bg = torch.zeros(3, device=dev)
+    batches = []
+    with torch.no_grad():
+        for i, c in enumerate(cams):
+            gt = render(*model.activated_params(), c.cam, bg, sh_degree=SH_DEGREE,
+                        cfg=raster, inference=True).image
+            h, w = gt.shape[1:]
+            batches.append(StepBatch(gt, torch.ones((1, h, w), device=dev),
+                                     torch.zeros((h, w), device=dev),
+                                     torch.zeros((h, w), device=dev),
+                                     torch.tensor(i, device=dev), bg))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        alive = model.alive.to(torch.float32)
+        for name, sigma in (("means3d", 0.002), ("features_dc", 0.2), ("opacities", 0.3)):
+            p = getattr(model, name)
+            noise = torch.randn(p.shape, generator=g, device=dev) * sigma
+            p.add_(noise * alive.reshape((-1,) + (1,) * (p.dim() - 1)))
+    model.spatial_lr_scale = get_nerfpp_norm([c.info for c in cams])["radius"]
+    print(f"train start: {int(model.num_alive())} alive of {model.capacity} slots, "
+          f"spatial_lr_scale {model.spatial_lr_scale:.6f}, instance_slack "
+          f"{raster.instance_slack:.6f}")
+    return dict(state=init_train_state(model, num_images=len(cams)), cams=cams,
+                batches=batches, raster=raster, seed=seed, device=dev)
+
+
+def _field_grads(setup, view, kernels):
+    """The first step's loss differentiated to the (P, 10) blend fields
+    through the render core and the untile (all kernels, or all twins), and
+    the pieces the kernel checks take apart."""
+    import torch
+
+    from gaussian_splatting_torch.ops import instances as inst
+    from gaussian_splatting_torch.ops import untile as ut
+    from gaussian_splatting_torch.ops.losses import photometric_loss
+    from gaussian_splatting_torch.ops.preprocess import clip, preprocess
+    from gaussian_splatting_torch.ops.rasterize import _detached, _RasterCore, blend_fields
+
+    state, raster = setup["state"], setup["raster"]
+    model, cam, batch = state.model, setup["cams"][view].cam, setup["batches"][view]
+    with torch.no_grad():
+        proj = preprocess(*model.activated_params(), cam, sh_degree=SH_DEGREE)
+    fields = blend_fields(proj).requires_grad_(True)
+    gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
+    capacity = inst.required_capacity(model.capacity, raster.instance_slack)
+    packed5, overflow, _ = _RasterCore.apply(fields, _detached(proj), gx, gy, 16, 16,
+                                             capacity, kernels)
+    img = ut.untile_differentiable(packed5, grid_x=gx, grid_y=gy, tile_w=16, tile_h=16,
+                                   width=WIDTH, height=HEIGHT, kernels=kernels)
+    image = clip(img[:3] + img[3][None] * batch.bg_color[:, None, None], 0.0, 1.0)
+    loss = photometric_loss(image, batch.gt_image, 0.2)
+    (d_fields,) = torch.autograd.grad(loss, fields)
+    return d_fields, proj, fields.detach(), capacity, bool(overflow)
+
+
+def train_parity(setup):
+    """Each training kernel against its twin on the first step's own inputs
+    (view 0 at full width), the whole field gradient against the all-twin
+    path, and a small scene's gradients against the dense oracle."""
+    import torch
+
+    from gaussian_splatting_torch.ops import blend as bl
+    from gaussian_splatting_torch.ops import instances as inst
+    from gaussian_splatting_torch.ops import segreduce as sr
+    from gaussian_splatting_torch.ops import untile as ut
+    from gaussian_splatting_torch.ops.losses import photometric_loss
+    from gaussian_splatting_torch.ops.preprocess import clip
+    from gaussian_splatting_torch.ops.rasterize import expansion_order
+
+    phase("train parity at full width")
+    d_fields, proj, fields, capacity, overflow = _field_grads(setup, 0, kernels=True)
+    d_fields_p, *_ = _field_grads(setup, 0, kernels=False)
+    if overflow:
+        raise RuntimeError("the first training step's render overflowed")
+    scale = d_fields_p.abs().amax(dim=0) + 1e-30
+    err_fields = float(((d_fields - d_fields_p).abs() / scale).max())
+    print(f"field gradients, kernel path vs all-twin path: max scaled diff "
+          f"{err_fields:.3e} (tolerance {TOL_GRAD})")
+    if not err_fields <= TOL_GRAD:
+        raise RuntimeError("kernel gradients disagree with the all-twin path")
+
+    gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
+    num_tiles = gx * gy
+    batch = setup["batches"][0]
+    with torch.no_grad():
+        layout = inst.build_instances(proj, grid_x=gx, grid_y=gy, capacity=capacity,
+                                      grad_layout=True)
+        args = (layout.sorted_owner, layout.tile_starts, layout.tile_ends, fields)
+        packed = bl.blend_forward(*args, grid_x=gx)
+        ukw = dict(grid_x=gx, grid_y=gy, tile_w=16, tile_h=16)
+        img = ut.untile(packed, **ukw, width=WIDTH, height=HEIGHT, cols=bl.CT_COLS)
+    img.requires_grad_(True)
+    image = clip(img[:3] + img[3][None] * batch.bg_color[:, None, None], 0.0, 1.0)
+    (d_img,) = torch.autograd.grad(photometric_loss(image, batch.gt_image, 0.2), img)
+    with torch.no_grad():
+        # K4
+        ct = ut.retile(d_img, **ukw)
+        torch.cuda.synchronize()
+        if not torch.equal(ct, ut.retile_plain(d_img, **ukw)):
+            raise RuntimeError("retile kernel disagrees with its plain version")
+        print(f"retile: bitwise equal over {ct.numel()} values")
+
+        # K5, into a NaN-poisoned buffer: every valid slot must be written
+        n = int(layout.n_valid)
+        d_sorted = torch.full((layout.sorted_owner.shape[0], bl.NUM_FIELDS), float("nan"),
+                              device=ct.device)
+        bl.launch_blend_backward(*args, packed, ct, gx, d_sorted)
+        d_sorted_p = bl.blend_backward_plain(*args, packed, ct, grid_x=gx)
+        torch.cuda.synchronize()
+        if bool(d_sorted[:n].isnan().any()):
+            raise RuntimeError("blend_backward left a valid slot unwritten")
+        col = d_sorted_p[:n].abs().amax(dim=0) + 1e-30
+        diff = (d_sorted[:n] - d_sorted_p[:n]).abs()
+        err_bwd = float((diff / col).max())
+        print(f"blend_backward: max scaled |kernel - plain| {err_bwd:.3e} "
+              f"(tolerance {TOL_BLEND_BWD}), {int((diff == 0).sum())} of {diff.numel()} "
+              f"values bitwise equal; {int(d_sorted[n:].isnan().sum())} NaN left past "
+              f"n_valid {n}, removed by the select")
+        if not err_bwd <= TOL_BLEND_BWD:
+            raise RuntimeError("blend_backward kernel disagrees with its plain version")
+
+        # K6 on the selected, reordered rows
+        d_exp = expansion_order(d_sorted, layout)
+        offsets = layout.seg_offsets
+        seg = sr.segment_reduce_rows(d_exp, offsets)
+        seg_p = sr.segment_reduce_rows_plain(d_exp, offsets)
+        torch.cuda.synchronize()
+        err_seg = float((seg - seg_p).abs().max())
+        print(f"segment_reduce: max |kernel - plain| {err_seg:.3e} (summed in the same "
+              f"order: bitwise expected); {int((seg == 0).all(dim=1).sum())} Gaussians "
+              f"with exact-zero gradients")
+        if not torch.equal(seg, seg_p):
+            raise RuntimeError("segment_reduce kernel disagrees with its plain version")
+
+        # work this run's data needs: pairs each pixel must replay (positions
+        # below its NB), instances each tile must read, rows each segment sums
+        starts = layout.tile_starts.long()[:, None]
+        ends = layout.tile_ends.long()[:, None]
+        nb = packed[..., bl.O_NB].long()
+        done = nb < int(bl.NB_BIG)
+        pairs = int(torch.where(done, nb - starts, ends - starts).clamp(min=0).sum())
+        need = torch.where(done.all(dim=1), nb.max(dim=1).values, ends[:, 0])
+        n_read = int((need - starts[:, 0]).clamp(min=0).sum())
+        n_rows = int(offsets[-1] - offsets[0])
+        contrib = contributing_pairs(layout, fields, packed, gx)
+        bwd_ops = BLEND_BWD_VISIT_OPS * pairs + BLEND_BWD_CONTRIB_OPS * contrib
+        print(f"blend_backward pairs replayed {pairs}, of which contributing {contrib} "
+              f"({100 * contrib / pairs:.2f}%); {bwd_ops} float operations; instances "
+              f"read {n_read}; segment rows {n_rows}")
+    check_small_grads_vs_oracle(setup["device"])
+    return dict(d_img=d_img, ukw=ukw, args=args, packed=packed, ct=ct, gx=gx,
+                num_tiles=num_tiles, n_valid=n, d_exp=d_exp, offsets=offsets, bwd_ops=bwd_ops,
+                n_read=n_read, n_rows=n_rows, err_bwd=err_bwd, err_seg=err_seg)
+
+
+def check_small_grads_vs_oracle(dev):
+    """The kernel path's gradients against autograd through the dense
+    oracle, on the render parity's small scene."""
+    import torch
+
+    from gaussian_splatting_torch.ops.rasterize import render
+    from gaussian_splatting_torch.utils.testing import random_scene
+
+    s = random_scene(1500, sh_degree=SH_DEGREE, width=128, height=96, seed=7,
+                     scale_range=(0.005, 0.04), bg=(0.1, 0.2, 0.3), device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    wimg = torch.randn((3, 96, 128), generator=g, device=dev)
+    winvd = 0.1 * torch.randn((96, 128), generator=g, device=dev)
+
+    def grads(impl):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (s.means3d, s.scales, s.quats, s.opacities, s.sh)]
+        out = render(*leaves, s.cam, s.bg, sh_degree=SH_DEGREE, impl=impl)
+        loss = (out.image * wimg).sum() + (out.invdepth * winvd).sum()
+        return torch.autograd.grad(loss, leaves), bool(out.overflow)
+
+    fast, overflow = grads("auto")
+    dense, _ = grads("dense")
+    errs = [float((a - b).abs().max() / (b.abs().max() + 1e-12)) for a, b in zip(fast, dense)]
+    print(f"small scene (1500 Gaussians, 128x96) gradients vs dense oracle: max scaled diff "
+          f"{max(errs):.3e} per input {['%.2e' % e for e in errs]} (tolerance {TOL_GRAD})")
+    if overflow or not max(errs) <= TOL_GRAD:
+        raise RuntimeError("kernel gradients disagree with the dense oracle")
+
+
+def train_path_phase(setup):
+    """The training path at full width: TRAIN_STEPS steps cycling the 3
+    views, one more step of view 0 under torch.profiler, then one densify
+    and one opacity reset.  Launch counts are zeroed just before and read
+    just after."""
+    import torch
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch.config import OptimizationConfig
+    from gaussian_splatting_torch.train.step import densify_step, opacity_reset_step, train_step
+
+    phase("train path")
+    opt = OptimizationConfig()
+    state, cams, batches, raster = (setup[k] for k in ("state", "cams", "batches", "raster"))
+    losses = {i: [] for i in range(len(cams))}
+
+    def step(k):
+        i = k % len(cams)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = train_step(state, cams[i].cam, batches[i], opt=opt, raster=raster)
+        vals = m["packed"].tolist()  # synchronises
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"  step {k + 1:2d} view {i}: {ms:8.2f} ms wall (synchronised), loss "
+              f"{vals[0]:.6f}, l1 {vals[1]:.6f}, slot demand {int(vals[4])}, "
+              f"overflow {bool(vals[3])}")
+        if vals[3]:
+            raise RuntimeError(f"training step {k + 1} overflowed")
+        losses[i].append(vals[0])
+        return ms
+
+    _kernels.reset_launches()
+    times = [step(k) for k in range(TRAIN_STEPS)]
+    print(f"profiled step {TRAIN_STEPS + 1} (view 0):", end=" ")
+    own_ms = profile_call(lambda: step(TRAIN_STEPS), _kernels.KERNELS)
+    gen = torch.Generator(device=setup["device"]).manual_seed(setup["seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, stats = densify_step(state, gen, opt=opt, max_screen_size=20)
+    stats = {k: int(v) for k, v in stats.items()}
+    print(f"  densify: {(time.perf_counter() - t0) * 1e3:.2f} ms wall, {stats}")
+    opacity_reset_step(state)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    print(f"launches during the train path: {launches}; num_alive "
+          f"{int(state.model.num_alive())}, step {int(state.step)}")
+    print(f"steps 2-{TRAIN_STEPS}: mean {sum(times[1:]) / (len(times) - 1):.2f} ms wall")
+    missing = [k for k in _kernels.KERNELS if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the train path: {missing}")
+    for i, ls in losses.items():
+        if not all(math.isfinite(x) for x in ls) or not ls[-1] < ls[0]:
+            raise RuntimeError(f"view {i} losses did not fall: {ls}")
+        print(f"  view {i} loss {ls[0]:.6f} -> {ls[-1]:.6f} over {len(ls)} visits")
+    return launches, own_ms
+
+
+def train_timing(tctx, launches):
+    import torch
+    import torch.nn.functional as F
+
+    from gaussian_splatting_torch.ops import blend as bl
+    from gaussian_splatting_torch.ops import segreduce as sr
+    from gaussian_splatting_torch.ops import untile as ut
+
+    phase("train timing")
+    d_img, ukw, args, packed, ct = (tctx[k] for k in ("d_img", "ukw", "args", "packed", "ct"))
+    gx, num_tiles, n_valid = tctx["gx"], tctx["num_tiles"], tctx["n_valid"]
+    rows = []
+    with torch.no_grad():
+        gw, gh = ukw["grid_x"] * 16, ukw["grid_y"] * 16
+        c = bl.CT_COLS
+        rows.append(kernel_row(
+            "retile", "gaussian_splatting_tpu/ops/untile.py:70", launches, 0.0,
+            cuda_ms(lambda: ut.retile(d_img, **ukw)),
+            cuda_ms(lambda: ut.retile_plain(d_img, **ukw)),
+            c * WIDTH * HEIGHT * 4 + num_tiles * 256 * c * 4, 0,
+            cuda_ms(lambda: F.pad(d_img, (0, gw - WIDTH, 0, gh - HEIGHT))
+                    .reshape(c, ukw["grid_y"], 16, gx, 16).permute(1, 3, 2, 4, 0).contiguous()),
+        ))
+        b_bytes = (tctx["n_read"] * (4 + 4 * bl.NUM_FIELDS)
+                   + num_tiles * 256 * 4 * (bl.OUT_COLS + bl.CT_COLS) + n_valid * 4 * bl.NUM_FIELDS)
+        rows.append(kernel_row(
+            "blend_backward", "gaussian_splatting_tpu/ops/blend_pallas.py:954", launches,
+            tctx["err_bwd"],
+            cuda_ms(lambda: bl.blend_backward(*args, packed, ct, grid_x=gx), iters=10),
+            cuda_ms(lambda: bl.blend_backward_plain(*args, packed, ct, grid_x=gx),
+                    iters=1, warmup=0),
+            b_bytes, tctx["bwd_ops"], None,
+        ))
+        d_exp, offsets = tctx["d_exp"], tctx["offsets"]
+        P = offsets.shape[0] - 1
+        seg_ids = torch.repeat_interleave(
+            torch.arange(P, device=d_exp.device), (offsets[1:] - offsets[:-1]).long())
+        seg_rows = d_exp[int(offsets[0]): int(offsets[-1])]
+        rows.append(kernel_row(
+            "segment_reduce", "gaussian_splatting_tpu/ops/segreduce.py:202", launches,
+            tctx["err_seg"],
+            cuda_ms(lambda: sr.segment_reduce_rows(d_exp, offsets)),
+            cuda_ms(lambda: sr.segment_reduce_rows_plain(d_exp, offsets), iters=3, warmup=1),
+            tctx["n_rows"] * 4 * sr.COLS + (P + 1) * 4 + P * 4 * sr.COLS, 0,
+            cuda_ms(lambda: torch.zeros((P, sr.COLS), device=d_exp.device)
+                    .index_add_(0, seg_ids, seg_rows)),
+        ))
+    for r in rows:
+        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    return rows
+
+
+def bench_phase(device="cuda", iters=10):
+    """bench.py's quantity on the port: forward + backward of sum(image) +
+    sum(invdepth) on bench.py's scene (500k Gaussians, SH 3, 1920x1080,
+    seed 0), capacity from the measured slot demand plus 5%, as pixels/s."""
+    import torch
+
+    from gaussian_splatting_torch.ops import instances as inst
+    from gaussian_splatting_torch.ops.preprocess import preprocess
+    from gaussian_splatting_torch.ops.rasterize import render
+    from gaussian_splatting_torch.utils.testing import random_scene
+
+    phase("bench")
+    s = random_scene(NUM_GAUSSIANS, sh_degree=SH_DEGREE, width=WIDTH, height=HEIGHT, seed=0,
+                     spread=2.0, scale_range=(0.0025, 0.012), cam_distance=4.0, device=device)
+    args = (s.means3d, s.scales, s.quats, s.opacities, s.sh)
+    with torch.no_grad():
+        demand = int(inst.build_table(preprocess(*args, s.cam, sh_degree=SH_DEGREE))[1])
+    capacity = -(-int(demand * 1.05) // 128) * 128
+    leaves = [t.clone().requires_grad_(True) for t in args]
+
+    def step():
+        out = render(*leaves, s.cam, s.bg, sh_degree=SH_DEGREE, capacity=capacity)
+        grads = torch.autograd.grad(out.image.sum() + out.invdepth.sum(), leaves)
+        return grads, out.overflow
+
+    _, overflow = step()
+    step()
+    torch.cuda.synchronize()
+    if bool(overflow):
+        raise RuntimeError("bench instance buffer overflowed")
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    print(f"slot demand {demand}, capacity {capacity}; forward + backward {dt * 1e3:.3f} ms "
+          f"per iteration over {iters}: {WIDTH * HEIGHT / dt:.1f} pixels/s at "
+          f"{WIDTH}x{HEIGHT} on {card()}")
+
+
 def kernel_row(name, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, library_ms):
+    """One kernel's JSON row.  ``launches`` maps each path the kernel runs on
+    to its launch count there; ``launches`` is the count on the path that
+    brought the kernel (render for K1-K3, train for K4-K6)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_PER_S * 1e3
     return {
@@ -457,7 +894,8 @@ def kernel_row(name, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, libr
         "route": "cuda",
         "source": f"gaussian_splatting_torch/csrc/{name}.cu",
         "replaces": replaces,
-        "launches": launches[name],
+        "launches": launches["render" if name in RENDER_KERNELS else "train"][name],
+        "launches_by_path": {path: counts[name] for path, counts in launches.items()},
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -476,10 +914,19 @@ def main():
     build_phase()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     _, model_dir = make_fixture(root, args.seed)
-    launches = main_path_phase(model_dir)
+    launches = {"render": main_path_phase(model_dir)}
     ctx = parity(model_dir)
     rows = timing(ctx, launches)
     profile_phase(ctx)
+    del ctx
+    setup = train_setup(model_dir, args.seed)
+    tctx = train_parity(setup)
+    launches["train"], _ = train_path_phase(setup)
+    for r in rows:  # K1-K3 launch on the train path too
+        r["launches_by_path"]["train"] = launches["train"][r["name"]]
+    rows += train_timing(tctx, launches)
+    del setup, tctx
+    bench_phase()
     shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

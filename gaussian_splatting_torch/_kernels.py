@@ -33,7 +33,10 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas", "-v",
 )
 
-KERNELS = ("expand", "blend_forward", "untile")
+KERNELS = (
+    "expand", "blend_forward", "untile",  # the render path
+    "retile", "blend_backward", "segment_reduce",  # its backward, for training
+)
 
 # Launch counts per kernel.  ``launch`` adds one per successful launch.
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -142,11 +145,12 @@ def current_stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_cuda(name: str, *tensors) -> None:
-    """Wrappers' argument check: contiguous tensors on one CUDA device."""
+def check_cuda(name: str, *tensors, contiguous: bool = True) -> None:
+    """Wrappers' argument check: tensors on one CUDA device, contiguous
+    unless the wrapper checks the strides itself."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

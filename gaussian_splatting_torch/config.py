@@ -42,6 +42,36 @@ class PipelineConfig:
 
 
 @dataclass
+class OptimizationConfig:
+    """Training schedule (reference ``OptimizationParams``)."""
+
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.025
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    exposure_lr_init: float = 0.01
+    exposure_lr_final: float = 0.001
+    exposure_lr_delay_steps: int = 0
+    exposure_lr_delay_mult: float = 0.0
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3_000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    depth_l1_weight_init: float = 1.0
+    depth_l1_weight_final: float = 0.01
+    random_background: bool = False
+    optimizer_type: str = "default"  # "default" | "sparse_adam"
+
+
+@dataclass
 class RasterizeConfig:
     """Rasterizer parameters (16x16 tiles as in the reference)."""
 

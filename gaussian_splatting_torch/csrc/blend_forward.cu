@@ -17,8 +17,9 @@
 //   contributor set is "eligible and position < NB"); else the pixel adds
 //   alpha T times its colour and inverse depth, and T = test_T.
 //
-// What bounds it on the card: operations.  About 20 float operations and
-// one expf per (pixel, instance) pair visited, against ~44 bytes read per
+// What bounds it on the card: operations.  16 float operations (one an
+// expf) per (pixel, instance) pair visited, 12 more on a contributing pair
+// (chip_smoke.py counts both kinds of pair), against ~44 bytes read per
 // instance (owner index + 10 fields, shared by the tile's 256 pixels) and
 // 32 bytes written per pixel.  Design: one block per tile, one thread per
 // pixel; the block stages 256 instances at a time into shared memory (each

@@ -1,15 +1,18 @@
-"""Gaussian model: fixed-capacity pre-activation parameters + alive mask.
+"""Gaussian model: fixed-capacity pre-activation parameters, the alive mask
+and the densification statistics.
 
-Counterpart of ``gaussian_splatting_tpu/models/gaussians.py``.  Live
-Gaussians occupy slots marked by ``alive``; dead slots keep the JAX
-package's empty values (logit -10, identity rotation) and render as fully
-transparent, so they become sentinel instances exactly as in JAX and the
-instance counts of the two packages agree.
+Counterpart of ``gaussian_splatting_tpu/models/gaussians.py``
+(``GaussianParams`` + ``GaussianAux`` + ``GaussianModel``).  Live Gaussians
+occupy slots marked by ``alive``; dead slots keep the JAX package's empty
+values (logit -10, identity rotation) and render as fully transparent, so
+they become sentinel instances exactly as in JAX and the instance counts of
+the two packages agree.  The active SH degree is a host integer (JAX keeps
+it on the device); ``spatial_lr_scale`` is the scene extent.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,10 +22,16 @@ from gaussian_splatting_torch import resolve_device
 from gaussian_splatting_torch.data.ply import load_gaussian_ply
 from gaussian_splatting_torch.ops.sh import num_sh_coeffs
 
+PARAM_NAMES = ("means3d", "features_dc", "features_rest", "opacities", "scales", "quats")
+# densification statistics (reference max_radii2D / xyz_gradient_accum / denom)
+STAT_NAMES = ("max_radii2d", "xyz_grad_accum", "denom")
+
 
 class GaussianModel(nn.Module):
     """Pre-activation parameters (log-scales, opacity logits, unnormalized
-    wxyz quaternions, SH DC + rest), each of length ``capacity``."""
+    wxyz quaternions, SH DC + rest), each of length ``capacity``, and the
+    per-slot buffers ``alive`` and ``STAT_NAMES`` (float32, zeros by
+    default)."""
 
     def __init__(
         self,
@@ -36,6 +45,8 @@ class GaussianModel(nn.Module):
         *,
         max_sh_degree: int,
         sh_degree: int,
+        spatial_lr_scale: float = 1.0,
+        stats: Optional[Dict[str, torch.Tensor]] = None,
     ):
         super().__init__()
         self.means3d = nn.Parameter(means3d)
@@ -45,8 +56,11 @@ class GaussianModel(nn.Module):
         self.scales = nn.Parameter(scales)
         self.quats = nn.Parameter(quats)
         self.register_buffer("alive", alive)
+        for name in STAT_NAMES:
+            self.register_buffer(name, torch.zeros_like(opacities) if stats is None else stats[name])
         self.max_sh_degree = int(max_sh_degree)
         self.sh_degree = int(sh_degree)  # active degree (<= max_sh_degree)
+        self.spatial_lr_scale = float(spatial_lr_scale)
 
     @classmethod
     def empty(cls, capacity: int, max_sh_degree: int, *, device=None) -> "GaussianModel":
@@ -69,6 +83,16 @@ class GaussianModel(nn.Module):
     @property
     def capacity(self) -> int:
         return self.means3d.shape[0]
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in PARAM_NAMES}
+
+    def num_alive(self) -> torch.Tensor:
+        return self.alive.sum(dtype=torch.int32)
+
+    def one_up_sh_degree(self) -> None:
+        """Raise the active SH degree by one, up to the maximum."""
+        self.sh_degree = min(self.sh_degree + 1, self.max_sh_degree)
 
     def activated_params(self) -> Tuple[torch.Tensor, ...]:
         """Rasterizer inputs: (means, scales, unit quats, opacities, sh) with
@@ -104,3 +128,20 @@ def load_model_ply(
             getattr(model, name)[:n] = torch.from_numpy(np.asarray(data[name]))
         model.alive[:n] = True
     return model
+
+
+def grow_capacity(model: GaussianModel, new_capacity: int) -> GaussianModel:
+    """A copy of ``model`` padded with empty slots to ``new_capacity``."""
+    extra = new_capacity - model.capacity
+    if extra < 0:
+        raise ValueError("grow_capacity cannot shrink a model")
+    pad = GaussianModel.empty(extra, model.max_sh_degree, device=model.means3d.device)
+    with torch.no_grad():
+        cat = {name: torch.cat([getattr(model, name), getattr(pad, name)])
+               for name in PARAM_NAMES + ("alive",) + STAT_NAMES}
+    return GaussianModel(
+        **{name: cat[name] for name in PARAM_NAMES}, alive=cat["alive"],
+        max_sh_degree=model.max_sh_degree, sh_degree=model.sh_degree,
+        spatial_lr_scale=model.spatial_lr_scale,
+        stats={name: cat[name] for name in STAT_NAMES},
+    )

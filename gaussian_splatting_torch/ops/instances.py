@@ -10,11 +10,17 @@ key ``tile << 32 | float_bits(depth)``: positive depths order like their
 bits, and ties keep expansion (Gaussian-index) order.  Tile ranges are one
 ``searchsorted`` over the sorted keys.  The blend then reads each instance's
 fields through ``sorted_owner``.
+
+With ``grad_layout=True`` (the training path) the layout also keeps what
+the backward needs: the sort permutation ``perm`` (sorted position ->
+expansion slot, JAX's ``sorted_src``) and each Gaussian's expansion segment
+``seg_offsets`` clamped to the internal capacity (JAX's ``seg_starts`` /
+``seg_ends``).  The inference layout leaves both ``None``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,6 +39,8 @@ class InstanceLayout(NamedTuple):
     n_valid: torch.Tensor  # () int32 length of the non-sentinel stream
     num_instances: torch.Tensor  # () int32 sentinel-inclusive demand, capped
     overflow: torch.Tensor  # () bool demand > capacity
+    perm: Optional[torch.Tensor] = None  # (cap_int,) int64 expansion slot per sorted slot
+    seg_offsets: Optional[torch.Tensor] = None  # (P + 1,) int32, clamped to cap_int
 
     def sorted_tiles(self) -> torch.Tensor:
         return (self.sorted_keys >> 32).to(torch.int32)
@@ -78,9 +86,10 @@ def build_table(proj: ProjectedGaussians):
 
 def layout_from_keys(
     keys: torch.Tensor, owner: torch.Tensor, total: torch.Tensor, *,
-    capacity: int, num_tiles: int,
+    capacity: int, num_tiles: int, offsets: Optional[torch.Tensor] = None,
 ) -> InstanceLayout:
-    """Stable sort of the expanded keys + per-tile ranges."""
+    """Stable sort of the expanded keys + per-tile ranges.  Given the
+    table's ``offsets``, also the gradient layout (``perm``, ``seg_offsets``)."""
     sorted_keys, perm = torch.sort(keys, stable=True)
     sorted_owner = owner[perm]
     bounds = torch.arange(num_tiles + 1, dtype=torch.int64, device=keys.device) << 32
@@ -93,6 +102,8 @@ def layout_from_keys(
         n_valid=starts_ext[num_tiles],
         num_instances=torch.clamp(total, max=capacity).to(torch.int32),
         overflow=total > capacity,
+        perm=None if offsets is None else perm,
+        seg_offsets=None if offsets is None else offsets.clamp(max=keys.shape[0]),
     )
 
 
@@ -103,8 +114,10 @@ def build_instances(
     grid_y: int,
     capacity: int,
     use_kernels: bool = True,
+    grad_layout: bool = False,
 ) -> InstanceLayout:
-    """``use_kernels=False`` runs the expand's plain twin on any device."""
+    """``use_kernels=False`` runs the expand's plain twin on any device;
+    ``grad_layout=True`` keeps what the backward needs."""
     if capacity >= MAX_CAPACITY:
         raise ValueError(f"instance capacity {capacity} exceeds f32-exact range")
     num_tiles = grid_x * grid_y
@@ -112,4 +125,5 @@ def build_instances(
     table, total = build_table(proj)
     expand = ex.expand_instances if use_kernels else ex.expand_instances_plain
     keys, owner = expand(table, capacity=cap_int, grid_x=grid_x, num_tiles=num_tiles)
-    return layout_from_keys(keys, owner, total, capacity=capacity, num_tiles=num_tiles)
+    return layout_from_keys(keys, owner, total, capacity=capacity, num_tiles=num_tiles,
+                            offsets=table.offsets if grad_layout else None)

@@ -1,9 +1,12 @@
-"""Dense reference renderer (the correctness oracle), forward only.
+"""Dense reference renderer (the correctness oracle).
 
 Counterpart of ``gaussian_splatting_tpu/ops/oracle.py``: every pixel scans
 every Gaussian in global depth order with the same tile-rect coverage test,
-alpha thresholds and early termination as the tiled blend.  O(P * H * W)
-work: small scenes only.  Selected with ``impl="dense"``.
+alpha thresholds and early termination as the tiled blend.  It is plain
+tensor code, so autograd runs through it: its gradients are the ground truth
+the tiled path's hand-written backward is held against (with JAX's zero
+gradient on the capped branch of ``alpha = min(0.99, op * G)``).  O(P * H *
+W) work: small scenes only.  Selected with ``impl="dense"``.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ def render_dense(
         dx = xy[0] - px
         dy = xy[1] - py
         power = -0.5 * (con[0] * dx * dx + con[2] * dy * dy) - con[1] * dx * dy
-        alpha = torch.clamp(proj.opacities[g] * torch.exp(power), max=ALPHA_CAP)
+        raw = proj.opacities[g] * torch.exp(power)
+        alpha = torch.minimum(raw, raw.new_full((), ALPHA_CAP))
         eligible = cover & (power <= 0.0) & (alpha >= ALPHA_MIN)
         test_T = T * (1.0 - alpha)
         trigger = eligible & (test_T < T_EPS) & ~done

@@ -7,6 +7,11 @@ operation order so integer outputs (radii, rects, spans, tile counts) match
 it bit for bit.  Float -> int conversions truncate toward zero like JAX's
 ``astype(int32)``; values are clamped into the int32 range first so that
 out-of-range floats saturate as XLA's conversion does.
+
+Bounds that gradients pass through use ``maximum`` / ``minimum`` / ``clip``
+below, the forms the JAX package writes (``jnp.maximum``, ``jnp.clip``):
+at a tie JAX splits the gradient evenly between the value and the bound,
+as ``torch.maximum`` does, while ``torch.clamp`` would pass all of it.
 """
 
 from __future__ import annotations
@@ -44,6 +49,21 @@ class ProjectedGaussians(NamedTuple):
     span_x0: torch.Tensor  # (P, 16) int32 first tile x per rect row
     span_cum: torch.Tensor  # (P, 16) int32 cumulative cell count through row
     span_flag: torch.Tensor  # (P,) bool: span mapping applies
+
+
+def maximum(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """``jnp.maximum(x, bound)``, gradient halved at a tie."""
+    return torch.maximum(x, x.new_full((), bound))
+
+
+def minimum(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """``jnp.minimum(x, bound)``, gradient halved at a tie."""
+    return torch.minimum(x, x.new_full((), bound))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``maximum`` then ``minimum``."""
+    return minimum(maximum(x, lo), hi)
 
 
 def _to_int32(x: torch.Tensor) -> torch.Tensor:
@@ -139,11 +159,11 @@ def compute_cov2d(
     """EWA projection of 3D covariance -> (P, 3) [xx, xy, yy] before dilation."""
     W = cam.viewmatrix[:3, :3]
     t = apply_affine(cam.viewmatrix, means3d)
-    tz = torch.clamp(t[:, 2], min=0.2)
+    tz = maximum(t[:, 2], 0.2)
     limx = 1.3 * cam.tan_fovx
     limy = 1.3 * cam.tan_fovy
-    tx = torch.clamp(t[:, 0] / tz, -limx, limx) * tz
-    ty = torch.clamp(t[:, 1] / tz, -limy, limy) * tz
+    tx = clip(t[:, 0] / tz, -limx, limx) * tz
+    ty = clip(t[:, 1] / tz, -limy, limy) * tz
 
     fx, fy = cam.focal_x, cam.focal_y
     inv_z = 1.0 / tz
@@ -226,7 +246,7 @@ def preprocess(
     cxy = cov2d[:, 1]
     det = cxx * cyy - cxy * cxy
     if antialiasing:
-        aa_scale = torch.sqrt(torch.clamp(det_orig / det, min=0.000025))
+        aa_scale = torch.sqrt(maximum(det_orig / det, 0.000025))
     else:
         aa_scale = torch.ones_like(det)
 
@@ -237,12 +257,12 @@ def preprocess(
 
     # radius from the larger eigenvalue
     mid = 0.5 * (cxx + cyy)
-    lam1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    lam1 = mid + torch.sqrt(maximum(mid * mid - det, 0.1))
     radius_f = torch.ceil(3.0 * torch.sqrt(lam1))
 
     # opacity-aware cut radius and per-axis ellipse extents
     op_for_cut = opacities * aa_scale
-    log_term = 2.0 * torch.log(torch.clamp(255.0 * op_for_cut, min=1.0))
+    log_term = 2.0 * torch.log(maximum(255.0 * op_for_cut, 1.0))
     r_cut = torch.minimum(torch.sqrt(lam1 * log_term), radius_f)
     taus = log_term + 1e-3
     ell_x = torch.sqrt(torch.clamp(taus * cxx, min=0.0)) + 0.1
@@ -260,8 +280,10 @@ def preprocess(
     ry_max = torch.clamp(
         _to_int32(torch.floor((mean2d[:, 1] + rect_ry) / tile_h)) + 1, 0, grid_y
     )
+    # integer outputs only: no gradient, so no autograd graph for the loop
     span_x0, span_cum, tiles, span_flag = compute_tile_spans(
-        mean2d, conic, log_term, r_cut, rx_min, ry_min, rx_max, ry_max,
+        mean2d.detach(), conic.detach(), log_term.detach(), r_cut.detach(),
+        rx_min, ry_min, rx_max, ry_max,
         tile_w=tile_w, tile_h=tile_h,
     )
     tiles = torch.where(op_for_cut * 255.0 > 1.0, tiles, 0)

@@ -1,10 +1,17 @@
 """The render op: preprocess -> instances (K1 + sort) -> blend (K2) -> untile
-(K3) -> background compositing.
+(K3) -> background compositing, and its gradient.
 
-Counterpart of ``gaussian_splatting_tpu/ops/rasterize.py::render``.  This
-slice is forward only: the training path (the custom backward over blend,
-segment reduce and retile) belongs to a later slice, so a call that would
-need gradients raises instead of silently detaching.
+Counterpart of ``gaussian_splatting_tpu/ops/rasterize.py::render``.  Only the
+blend core and the untile are hand-written kernels with hand-written
+backwards (``_RasterCore``: K5 blend backward -> select of the valid stream
+-> scatter to expansion order -> K6 segment reduce; ``ops.untile._Untile``:
+K4 retile).  Every other gradient (projection, EWA covariance, SH,
+antialiasing rescale, inverse depth) comes from autograd.
+
+The densification tap mirrors the reference's ``screenspace_points``: pass
+a zeros (P, 2) tensor that requires grad as ``means2d_tap`` and read its
+gradient, scaled by (0.5 W, 0.5 H) into NDC units so that
+``densify_grad_threshold`` keeps its reference meaning.
 """
 
 from __future__ import annotations
@@ -16,16 +23,22 @@ import torch
 from gaussian_splatting_torch.config import RasterizeConfig
 from gaussian_splatting_torch.ops import blend as bl
 from gaussian_splatting_torch.ops import instances as inst
+from gaussian_splatting_torch.ops import segreduce as sr
 from gaussian_splatting_torch.ops import untile as ut
 from gaussian_splatting_torch.ops.camera_math import CameraParams
 from gaussian_splatting_torch.ops.oracle import render_dense
-from gaussian_splatting_torch.ops.preprocess import ProjectedGaussians, preprocess
+from gaussian_splatting_torch.ops.preprocess import ProjectedGaussians, clip, preprocess
 from gaussian_splatting_torch.ops.sh import sh_to_color
-from gaussian_splatting_torch.ops.transforms import build_covariance
+from gaussian_splatting_torch.ops.transforms import apply_affine, build_covariance
 
 # Names of the tiled path, which runs the CUDA kernels.  "jax" named the JAX
 # package's own tiled variant; a model trained with it renders the same here.
 TILED_IMPLS = ("auto", "pallas", "jax")
+
+
+def mark_visible(means3d: torch.Tensor, viewmatrix: torch.Tensor) -> torch.Tensor:
+    """Frustum-visibility mask (reference ``markVisible``): view-space z > 0.2."""
+    return apply_affine(viewmatrix, means3d)[:, 2] > 0.2
 
 
 class RenderResult(NamedTuple):
@@ -54,6 +67,65 @@ def blend_fields(proj: ProjectedGaussians) -> torch.Tensor:
     ).to(torch.float32).contiguous()
 
 
+class _RasterCore(torch.autograd.Function):
+    """Instances + blend with a hand-written backward (JAX
+    ``_make_render_core``'s ``core``).
+
+    Forward: K1 -> stable sort -> K2; outputs the five columns the render
+    consumes, a view of the packed (tiles, 256, 8) block, which is kept with
+    the layout for the backward.  Backward: K5 per-slot gradients ->
+    ``expansion_order`` -> K6 per-Gaussian sums -> (P, 10) field
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, fields, proj, grid_x, grid_y, tile_w, tile_h, capacity, kernels):
+        layout, packed = _bin_and_blend(proj, fields, grid_x, grid_y, tile_w, tile_h,
+                                        capacity, kernels, grad_layout=True)
+        ctx.save_for_backward(fields)
+        ctx.layout, ctx.packed, ctx.kernels = layout, packed, kernels
+        ctx.tiles = dict(grid_x=grid_x, tile_w=tile_w, tile_h=tile_h)
+        ctx.mark_non_differentiable(layout.overflow, layout.num_instances)
+        return packed[:, :, : bl.CT_COLS], layout.overflow, layout.num_instances
+
+    @staticmethod
+    def backward(ctx, ct, _overflow, _count):
+        (fields,) = ctx.saved_tensors
+        layout = ctx.layout
+        backward = bl.blend_backward if ctx.kernels else bl.blend_backward_plain
+        d_sorted = backward(
+            layout.sorted_owner, layout.tile_starts, layout.tile_ends, fields,
+            ctx.packed, ct.contiguous(), **ctx.tiles,
+        )
+        reduce = sr.segment_reduce_rows if ctx.kernels else sr.segment_reduce_rows_plain
+        d_fields = reduce(expansion_order(d_sorted, layout), layout.seg_offsets)
+        return (d_fields,) + (None,) * 7
+
+
+def _bin_and_blend(proj, fields, grid_x, grid_y, tile_w, tile_h, capacity, kernels,
+                   grad_layout=False):
+    """Instances (K1 + sort) and the blend (K2), or their twins: the layout
+    and the packed (tiles, 256, 8) block."""
+    layout = inst.build_instances(
+        proj, grid_x=grid_x, grid_y=grid_y, capacity=capacity,
+        use_kernels=kernels, grad_layout=grad_layout,
+    )
+    blend = bl.blend_forward if kernels else bl.blend_forward_plain
+    packed = blend(
+        layout.sorted_owner, layout.tile_starts, layout.tile_ends, fields,
+        grid_x=grid_x, tile_w=tile_w, tile_h=tile_h,
+    )
+    return layout, packed
+
+
+def expansion_order(d_sorted: torch.Tensor, layout: inst.InstanceLayout) -> torch.Tensor:
+    """K5's per-sorted-slot rows in expansion order, K6's input: a SELECT of
+    the slots below ``n_valid`` (slots past it are never written, and
+    NaN * 0 is NaN), then a scatter by the sort permutation."""
+    valid = torch.arange(d_sorted.shape[0], device=d_sorted.device) < layout.n_valid
+    d_sorted = torch.where(valid[:, None], d_sorted, 0.0)
+    return torch.empty_like(d_sorted).index_copy_(0, layout.perm, d_sorted)
+
+
 def render(
     means3d: torch.Tensor,
     scales: torch.Tensor,
@@ -65,32 +137,35 @@ def render(
     *,
     sh_degree: int,
     cfg: RasterizeConfig = RasterizeConfig(),
+    means2d_tap: Optional[torch.Tensor] = None,
     capacity: Optional[int] = None,
     scale_modifier: float = 1.0,
     impl: Optional[str] = None,
     inference: bool = False,
 ) -> RenderResult:
     """Render P Gaussians to an image (reference ``render()``, minus the
-    exposure affine, which callers apply)."""
+    exposure affine, which callers apply).  Differentiable in the five
+    Gaussian inputs and ``means2d_tap`` unless ``inference``, which renders
+    without building any autograd state."""
+    kw = dict(sh_degree=sh_degree, cfg=cfg, capacity=capacity,
+              scale_modifier=scale_modifier, impl=impl or cfg.impl,
+              means2d_tap=means2d_tap)
     inputs = (means3d, scales, quats, opacities, sh)
-    if not inference and torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise NotImplementedError("training path: a later slice")
-    with torch.no_grad():
-        return _render(
-            *inputs, cam, bg_color, sh_degree=sh_degree, cfg=cfg,
-            capacity=capacity, scale_modifier=scale_modifier,
-            impl=impl or cfg.impl,
-        )
+    if inference:
+        with torch.no_grad():
+            return _render(*inputs, cam, bg_color, **kw)
+    return _render(*inputs, cam, bg_color, **kw)
 
 
 def _render(
     means3d, scales, quats, opacities, sh, cam, bg_color, *, sh_degree,
     cfg=RasterizeConfig(), capacity=None, scale_modifier=1.0, impl="auto",
-    kernels=True,
+    means2d_tap=None, kernels=True,
 ) -> RenderResult:
-    """``render`` without its gradient guard.  ``kernels=False`` runs the
-    tiled path through the kernels' plain twins on any device, the reference
-    that the kernel path is held against on the card."""
+    """``render`` without its ``inference`` switch.  ``kernels=False`` runs
+    the tiled path, forward and backward, through the kernels' plain twins
+    on any device: the reference that the kernel path is held against on
+    the card."""
     if impl not in TILED_IMPLS + ("dense",):
         raise ValueError(f"unknown rasterizer impl: {impl}")
     P = means3d.shape[0]
@@ -115,11 +190,15 @@ def _render(
         scale_modifier=scale_modifier, antialiasing=cfg.antialiasing,
         cov3d_precomp=cov3d_precomp, colors_precomp=colors_precomp,
     )
+    if means2d_tap is not None:
+        ndc_scale = torch.tensor([0.5 * W, 0.5 * H], dtype=torch.float32,
+                                 device=means3d.device)
+        proj = proj._replace(means2d=proj.means2d + means2d_tap * ndc_scale)
 
     if impl == "dense":
         out = render_dense(proj, cam, bg_color, tile_w=tile_w, tile_h=tile_h)
         return RenderResult(
-            image=torch.clamp(out.color, 0.0, 1.0),
+            image=clip(out.color, 0.0, 1.0),
             invdepth=out.invdepth,
             final_T=out.final_T,
             radii=proj.radii,
@@ -133,27 +212,33 @@ def _render(
     else:
         capacity = -(-capacity // cfg.chunk) * cfg.chunk
 
-    layout = inst.build_instances(
-        proj, grid_x=grid_x, grid_y=grid_y, capacity=capacity, use_kernels=kernels
-    )
-    blend = bl.blend_forward if kernels else bl.blend_forward_plain
-    packed = blend(
-        layout.sorted_owner, layout.tile_starts, layout.tile_ends,
-        blend_fields(proj), grid_x=grid_x, tile_w=tile_w, tile_h=tile_h,
-    )
-    untile = ut.untile if kernels else ut.untile_plain
-    img = untile(
-        packed, grid_x=grid_x, grid_y=grid_y, tile_w=tile_w, tile_h=tile_h,
-        width=W, height=H, cols=bl.CT_COLS,
-    )
+    fields = blend_fields(proj)
+    untile_kw = dict(grid_x=grid_x, grid_y=grid_y, tile_w=tile_w, tile_h=tile_h,
+                     width=W, height=H)
+    if torch.is_grad_enabled() and fields.requires_grad:
+        packed, overflow, num_instances = _RasterCore.apply(
+            fields, _detached(proj), grid_x, grid_y, tile_w, tile_h, capacity, kernels,
+        )
+        img = ut.untile_differentiable(packed, **untile_kw, kernels=kernels)
+    else:
+        layout, packed = _bin_and_blend(proj, fields, grid_x, grid_y, tile_w, tile_h,
+                                        capacity, kernels)
+        untile = ut.untile if kernels else ut.untile_plain
+        img = untile(packed, **untile_kw, cols=bl.CT_COLS)
+        overflow, num_instances = layout.overflow, layout.num_instances
     T_img = img[bl.O_T]
     color = img[bl.O_R : bl.O_B + 1] + T_img[None] * bg_color[:, None, None]
     return RenderResult(
-        image=torch.clamp(color, 0.0, 1.0),
+        image=clip(color, 0.0, 1.0),
         invdepth=img[bl.O_INVD],
         final_T=T_img,
         radii=proj.radii,
         visibility=proj.radii > 0,
-        overflow=layout.overflow,
-        num_instances=layout.num_instances,
+        overflow=overflow,
+        num_instances=num_instances,
     )
+
+
+def _detached(proj: ProjectedGaussians) -> ProjectedGaussians:
+    """The binning geometry, cut from the graph (JAX ``stop_gradient``)."""
+    return ProjectedGaussians(*(t.detach() for t in proj))

@@ -2,7 +2,8 @@
 
 Counterpart of ``gaussian_splatting_tpu/ops/sh.py`` (the reference's
 ``computeColorFromSH``): evaluate along the normalized camera -> Gaussian
-direction, add 0.5, clamp at 0.
+direction, add 0.5, clamp at 0 (with ``torch.maximum``, whose gradient at
+the bound matches ``jnp.maximum``'s).
 """
 
 from __future__ import annotations
@@ -79,7 +80,8 @@ def sh_to_color(
 ) -> torch.Tensor:
     d = means3d - campos
     d = d / torch.sqrt((d * d).sum(dim=-1, keepdim=True))
-    return torch.clamp(eval_sh(deg, sh, d) + 0.5, min=0.0)
+    rgb = eval_sh(deg, sh, d) + 0.5
+    return torch.maximum(rgb, rgb.new_zeros(()))  # jnp.maximum: gradient halved at 0
 
 
 def rgb_to_sh(rgb):

@@ -27,6 +27,7 @@ from gaussian_splatting_torch.config import (
 )
 from gaussian_splatting_torch.models.gaussians import GaussianModel
 from gaussian_splatting_torch.ops.rasterize import RenderResult, render
+from gaussian_splatting_torch.train.step import apply_exposure
 from gaussian_splatting_torch.utils.image import to_uint8, write_image
 
 MAX_EVAL_SLACK = 512.0
@@ -41,13 +42,6 @@ def load_raster_state(model_path: str, raster: RasterizeConfig) -> RasterizeConf
         rs = json.load(f)
     slack = max(float(rs["instance_slack"]), raster.instance_slack)
     return dataclasses.replace(raster, instance_slack=slack)
-
-
-def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
-    """Per-image affine: rgb' = rgb @ M + t, in full float32."""
-    M = exposure[:3, :3]
-    t = exposure[:3, 3]
-    return torch.einsum("chw,ck->khw", image, M) + t[:, None, None]
 
 
 def render_camera(

@@ -1,5 +1,6 @@
 """Card-only tests: each hand-written CUDA kernel against its plain PyTorch
-twin at a small size, on the card.
+twin at a small size, on the card, and the render's gradients through the
+kernels against the all-twin path.
 
 They skip without a card.  On a machine with one (which need not have JAX;
 ``--noconftest`` keeps the JAX-pinning conftest out):
@@ -15,9 +16,10 @@ from gaussian_splatting_torch.config import RasterizeConfig
 from gaussian_splatting_torch.ops import blend as bl
 from gaussian_splatting_torch.ops import expand as ex
 from gaussian_splatting_torch.ops import instances as inst
+from gaussian_splatting_torch.ops import segreduce as sr
 from gaussian_splatting_torch.ops import untile as ut
 from gaussian_splatting_torch.ops.preprocess import preprocess
-from gaussian_splatting_torch.ops.rasterize import _render, blend_fields, render
+from gaussian_splatting_torch.ops.rasterize import _render, blend_fields, expansion_order, render
 from gaussian_splatting_torch.utils.testing import random_scene
 
 pytestmark = pytest.mark.gpu
@@ -114,3 +116,81 @@ def test_kernels_raise_on_wrong_input(cuda):
     with pytest.raises(ValueError):
         ut.untile(packed[:, :, ::2], grid_x=gx, grid_y=gy, tile_w=16, tile_h=16,
                   width=W, height=H, cols=3)
+
+
+def test_retile_kernel_matches_plain(cuda):
+    gx, gy = _grid()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    img = torch.randn((bl.CT_COLS, H, W), generator=g, device=cuda)
+    kw = dict(grid_x=gx, grid_y=gy, tile_w=16, tile_h=16)
+    before = _kernels.launches["retile"]
+    out = ut.retile(img, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["retile"] == before + 1
+    assert torch.equal(out, ut.retile_plain(img, **kw))
+
+
+def test_blend_backward_kernel_matches_plain_and_leaves_the_tail(cuda):
+    """The kernel writes every slot below n_valid (a NaN-poisoned buffer
+    keeps NaN only past it, which ``expansion_order``'s select removes) and
+    sums in its twin's order."""
+    _, proj = _scene_proj(cuda)
+    gx, gy = _grid()
+    layout = inst.build_instances(proj, grid_x=gx, grid_y=gy,
+                                  capacity=inst.required_capacity(3000, 2.0), grad_layout=True)
+    fields = blend_fields(proj)
+    args = (layout.sorted_owner, layout.tile_starts, layout.tile_ends, fields)
+    packed = bl.blend_forward(*args, grid_x=gx)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    ct = torch.randn((gx * gy, 256, bl.CT_COLS), generator=g, device=cuda)
+    out = torch.full((layout.sorted_owner.shape[0], bl.NUM_FIELDS), float("nan"), device=cuda)
+    before = _kernels.launches["blend_backward"]
+    bl.launch_blend_backward(*args, packed, ct, gx, out)
+    torch.cuda.synchronize()
+    assert _kernels.launches["blend_backward"] == before + 1
+    n = int(layout.n_valid)
+    assert not bool(out[:n].isnan().any()) and bool(out[n:].isnan().all())
+    ref = bl.blend_backward_plain(*args, packed, ct, grid_x=gx)
+    scale = ref[:n].abs().amax(dim=0) + 1e-30
+    assert float(((out[:n] - ref[:n]).abs() / scale).max()) <= 1e-6
+    assert float(out[:n].abs().sum()) > 1.0
+    assert torch.equal(bl.blend_backward(*args, packed, ct, grid_x=gx)[:n], out[:n])
+    assert not bool(expansion_order(out, layout).isnan().any())
+
+
+def test_segment_reduce_kernel_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lengths = torch.randint(1, 9, (5000,), generator=g, device=cuda)
+    lengths[100:200] = 0
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=cuda), lengths.cumsum(0)])
+    n = int(offsets[-1])
+    rows = torch.randn((n + 300, sr.COLS), generator=g, device=cuda)
+    offsets = offsets.clamp(max=n - 50).to(torch.int32)  # a clamped (overflowed) tail
+    before = _kernels.launches["segment_reduce"]
+    out = sr.segment_reduce_rows(rows, offsets)
+    torch.cuda.synchronize()
+    assert _kernels.launches["segment_reduce"] == before + 1
+    assert torch.equal(out, sr.segment_reduce_rows_plain(rows, offsets))
+    assert bool((out[100:200] == 0).all())
+
+
+def test_render_gradients_kernels_match_plain_path(cuda):
+    s, _ = _scene_proj(cuda)
+    leaves = [t.clone().requires_grad_(True)
+              for t in (s.means3d, s.scales, s.quats, s.opacities, s.sh)]
+    tap = torch.zeros((3000, 2), device=cuda, requires_grad=True)
+
+    def grads(kernels):
+        out = _render(*leaves, s.cam, s.bg, sh_degree=3, means2d_tap=tap, kernels=kernels)
+        loss = out.image.square().sum() + out.invdepth.sum()
+        return torch.autograd.grad(loss, leaves + [tap])
+
+    counts = dict(_kernels.launches)
+    fast = grads(True)
+    torch.cuda.synchronize()
+    for name in _kernels.KERNELS:
+        assert _kernels.launches[name] == counts[name] + 1, name
+    plain = grads(False)
+    for a, b in zip(fast, plain):
+        scale = float(b.abs().max()) + 1e-12
+        assert float((a - b).abs().max()) <= 3e-4 * scale

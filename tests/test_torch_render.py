@@ -152,11 +152,18 @@ def test_capacity_overflow_flag():
 
 
 def test_training_path_raises():
+    """The training path (``inference=False``) renders with a graph and
+    backpropagates; an inference render carries no graph, so a backward
+    through it raises."""
     params, alive = _model_inputs(20, 0, seed=7)
     model = model_from_jax_params(params, alive, max_sh_degree=0, sh_degree=0, device="cpu")
     tcam, _ = _cameras(32, 32)
-    with pytest.raises(NotImplementedError, match="training path"):
-        render(*model.activated_params(), tcam, torch.zeros(3), sh_degree=0)
+    out = render(*model.activated_params(), tcam, torch.zeros(3), sh_degree=0, inference=True)
+    with pytest.raises(RuntimeError, match="does not require grad"):
+        out.image.sum().backward()
+    out = render(*model.activated_params(), tcam, torch.zeros(3), sh_degree=0)
+    out.image.sum().backward()
+    assert model.opacities.grad is not None and bool(model.opacities.grad.any())
     with torch.no_grad():  # nothing requires grad: the forward runs
         out = render(*model.activated_params(), tcam, torch.zeros(3), sh_degree=0)
     assert out.image.shape == (3, 32, 32)
