@@ -32,6 +32,20 @@ Phases (any failure raises, and the script exits non-zero):
  10. train timing   K4-K6 as in phase 6, on phase 8's inputs
  11. bench          bench.py's quantity on the port: forward + backward of
               sum(image) + sum(invdepth) at 1080p on bench.py's scene, px/s
+ 12. train CLI scene  8 train and 2 test 1080p views on orbits of radius 20
+              (see CLI_ORBIT_RADIUS), each the port's render of the fixture
+              model, and points3d.ply with its 500k means and DC colours
+ 13. train CLI      ``python -m gaussian_splatting_torch.train`` in-process:
+              300 iterations from create_from_pcd (densify at 100, 200, 300,
+              opacity reset at 200, eval, snapshots, a checkpoint at 300), a
+              resume to 310, the render CLI on the result; K1-K6 launch, the
+              JAX trainer's files exist, the resume starts at 301, and the
+              test-view PSNR beats the initial model's by 1 dB; prints the
+              steady and boundary wall times and the loop's slack reports
+ 14. segscan        K7 on phase 8's expansion-order gradient rows (10 x ~1.76M,
+              flagged at each Gaussian segment's first slot): one launch as
+              its path, then bitwise against its twin and, at each segment's
+              last slot, bitwise against K6's sums; timed and profiled
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a card: without one it exits non-zero
 before printing any result.
@@ -82,7 +96,6 @@ NB_DIFF_MAX = 1e-4  # share of pixels whose NB may differ (fp rounding at T_EPS)
 # admits a last-bit difference in a library exp or division.
 TOL_BLEND_BWD = 1e-6
 TOL_GRAD = 3e-4  # gradients vs the all-twin path / the dense oracle, scaled
-RENDER_KERNELS = ("expand", "blend_forward", "untile")
 TRAIN_STEPS = 12  # counted steps over the 3 views, then one profiled step
 
 
@@ -201,7 +214,7 @@ def write_raster_state(model_dir, device):
     from gaussian_splatting_torch.scene import Scene
 
     cfg = load_config(ModelConfig, os.path.join(model_dir, "cfg_args.json"))
-    scene = Scene(cfg, load_iteration=-1, device=torch.device(device))
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=torch.device(device))
     model = scene.gaussians
     params = model.activated_params()
     with torch.no_grad():
@@ -237,7 +250,7 @@ def main_path_phase(model_dir, device="cuda"):
         print(f"  view {r['index']}: {r['seconds'] * 1e3:.1f} ms wall (synchronised), "
               f"slot demand (num_instances) {r['num_instances']}, retries {r['retries']}, "
               f"peak {(r['peak_bytes'] or 0) / 2**20:.0f} MiB, mean pixel {img.mean():.1f}")
-    missing = [k for k in RENDER_KERNELS if launches[k] == 0]
+    missing = [k for k in _kernels.RENDER_KERNELS if launches[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the render path: {missing}")
     if any(r["retries"] for r in records):
@@ -273,13 +286,13 @@ def parity(model_dir, device="cuda"):
     from gaussian_splatting_torch.ops import untile as ut
     from gaussian_splatting_torch.ops.preprocess import preprocess
     from gaussian_splatting_torch.ops.rasterize import _render, blend_fields
-    from gaussian_splatting_torch.render import load_raster_state
+    from gaussian_splatting_torch.train.loop import load_raster_state
     from gaussian_splatting_torch.scene import Scene
 
     phase("render parity at full width")
     cuda = torch.device(device)
     cfg = load_config(ModelConfig, os.path.join(model_dir, "cfg_args.json"))
-    scene = Scene(cfg, load_iteration=-1, device=cuda)
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=cuda)
     model = scene.gaussians
     camera = scene.get_test_cameras()[0]
     cam = camera.cam
@@ -397,7 +410,8 @@ def contributing_pairs(layout, fields, packed, grid_x, chunk=1 << 15):
 def profile_call(fn, kernels, top=12):
     """``fn`` once under torch.profiler: its synchronised wall time, the
     device's busy share of it, each named kernel's own device time and the
-    largest other entries.  Returns each kernel's device ms."""
+    largest other entries.  Returns each kernel's device ms per launch that
+    the profiler recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -418,8 +432,10 @@ def profile_call(fn, kernels, top=12):
         own = [e for e in events if f"::{name}_kernel(" in e.key]
         if not own:
             raise RuntimeError(f"profile shows no {name} kernel on the device")
-        own_ms[name] = sum(e.self_device_time_total for e in own) / 1e3
-        print(f"  {name} kernel: {own_ms[name]:.4f} ms device time, x{sum(e.count for e in own)}")
+        total_ms = sum(e.self_device_time_total for e in own) / 1e3
+        count = sum(e.count for e in own)
+        own_ms[name] = total_ms / count
+        print(f"  {name} kernel: {total_ms:.4f} ms device time, x{count}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
     return own_ms
@@ -430,6 +446,7 @@ def profile_phase(ctx):
     retry) under torch.profiler."""
     import torch
 
+    from gaussian_splatting_torch import _kernels
     from gaussian_splatting_torch.config import RasterizeConfig
     from gaussian_splatting_torch.render import render_camera
 
@@ -440,10 +457,11 @@ def profile_phase(ctx):
         render_camera(ctx["model"], ctx["camera"], cfg, bg)
     torch.cuda.synchronize()
     print("steady-state view:", end=" ")
-    profile_call(lambda: render_camera(ctx["model"], ctx["camera"], cfg, bg), RENDER_KERNELS)
+    profile_call(lambda: render_camera(ctx["model"], ctx["camera"], cfg, bg),
+                 _kernels.RENDER_KERNELS)
 
 
-def timing(ctx, launches):
+def timing(ctx):
     import torch
 
     from gaussian_splatting_torch.ops import blend as bl
@@ -458,15 +476,14 @@ def timing(ctx, launches):
         t_bytes = expand_bytes(table, ctx["cap_int"])
         print(f"expand moves at least {t_bytes} bytes")
         rows.append(kernel_row(
-            "expand", "gaussian_splatting_tpu/ops/expand.py:310", launches, ctx["err_expand"],
+            "expand", "gaussian_splatting_tpu/ops/expand.py:310", ctx["err_expand"],
             cuda_ms(lambda: ex.expand_instances(table, **ekw)),
             cuda_ms(lambda: ex.expand_instances_plain(table, **ekw)),
             t_bytes, 0, None,
         ))
         b_bytes = ctx["n_read"] * (4 + 4 * bl.NUM_FIELDS) + num_tiles * (8 + 256 * bl.OUT_COLS * 4)
         rows.append(kernel_row(
-            "blend_forward", "gaussian_splatting_tpu/ops/blend_pallas.py:518", launches,
-            ctx["err_blend"],
+            "blend_forward", "gaussian_splatting_tpu/ops/blend_pallas.py:518", ctx["err_blend"],
             cuda_ms(lambda: bl.blend_forward(*bargs, grid_x=gx)),
             cuda_ms(lambda: bl.blend_forward_plain(*bargs, grid_x=gx), iters=5, warmup=1),
             b_bytes, ctx["blend_ops"], None,
@@ -474,7 +491,7 @@ def timing(ctx, launches):
         u_bytes = 2 * bl.CT_COLS * WIDTH * HEIGHT * 4
         view = packed.view(gy, gx, 16, 16, bl.OUT_COLS)[..., : bl.CT_COLS]
         rows.append(kernel_row(
-            "untile", "gaussian_splatting_tpu/ops/untile.py:45", launches, 0.0,
+            "untile", "gaussian_splatting_tpu/ops/untile.py:45", 0.0,
             cuda_ms(lambda: ut.untile(packed, **ukw)),
             cuda_ms(lambda: ut.untile_plain(packed, **ukw)),
             u_bytes, 0,
@@ -539,13 +556,13 @@ def train_setup(model_dir, seed, device="cuda"):
     from gaussian_splatting_torch.config import ModelConfig, RasterizeConfig, load_config
     from gaussian_splatting_torch.data.dataset import get_nerfpp_norm
     from gaussian_splatting_torch.ops.rasterize import render
-    from gaussian_splatting_torch.render import load_raster_state
+    from gaussian_splatting_torch.train.loop import load_raster_state
     from gaussian_splatting_torch.scene import Scene
     from gaussian_splatting_torch.train.step import StepBatch, init_train_state
 
     dev = torch.device(device)
     cfg = load_config(ModelConfig, os.path.join(model_dir, "cfg_args.json"))
-    scene = Scene(cfg, load_iteration=-1, device=dev)
+    scene = Scene(cfg, load_iteration=-1, shuffle=False, device=dev)
     model = scene.gaussians
     cams = scene.get_test_cameras()
     raster = load_raster_state(model_dir, RasterizeConfig())
@@ -767,7 +784,7 @@ def train_path_phase(setup):
     _kernels.reset_launches()
     times = [step(k) for k in range(TRAIN_STEPS)]
     print(f"profiled step {TRAIN_STEPS + 1} (view 0):", end=" ")
-    own_ms = profile_call(lambda: step(TRAIN_STEPS), _kernels.KERNELS)
+    profile_call(lambda: step(TRAIN_STEPS), _kernels.TRAIN_KERNELS)
     gen = torch.Generator(device=setup["device"]).manual_seed(setup["seed"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -780,17 +797,17 @@ def train_path_phase(setup):
     print(f"launches during the train path: {launches}; num_alive "
           f"{int(state.model.num_alive())}, step {int(state.step)}")
     print(f"steps 2-{TRAIN_STEPS}: mean {sum(times[1:]) / (len(times) - 1):.2f} ms wall")
-    missing = [k for k in _kernels.KERNELS if launches[k] == 0]
+    missing = [k for k in _kernels.TRAIN_KERNELS if launches[k] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the train path: {missing}")
     for i, ls in losses.items():
         if not all(math.isfinite(x) for x in ls) or not ls[-1] < ls[0]:
             raise RuntimeError(f"view {i} losses did not fall: {ls}")
         print(f"  view {i} loss {ls[0]:.6f} -> {ls[-1]:.6f} over {len(ls)} visits")
-    return launches, own_ms
+    return launches
 
 
-def train_timing(tctx, launches):
+def train_timing(tctx):
     import torch
     import torch.nn.functional as F
 
@@ -806,7 +823,7 @@ def train_timing(tctx, launches):
         gw, gh = ukw["grid_x"] * 16, ukw["grid_y"] * 16
         c = bl.CT_COLS
         rows.append(kernel_row(
-            "retile", "gaussian_splatting_tpu/ops/untile.py:70", launches, 0.0,
+            "retile", "gaussian_splatting_tpu/ops/untile.py:70", 0.0,
             cuda_ms(lambda: ut.retile(d_img, **ukw)),
             cuda_ms(lambda: ut.retile_plain(d_img, **ukw)),
             c * WIDTH * HEIGHT * 4 + num_tiles * 256 * c * 4, 0,
@@ -816,8 +833,7 @@ def train_timing(tctx, launches):
         b_bytes = (tctx["n_read"] * (4 + 4 * bl.NUM_FIELDS)
                    + num_tiles * 256 * 4 * (bl.OUT_COLS + bl.CT_COLS) + n_valid * 4 * bl.NUM_FIELDS)
         rows.append(kernel_row(
-            "blend_backward", "gaussian_splatting_tpu/ops/blend_pallas.py:954", launches,
-            tctx["err_bwd"],
+            "blend_backward", "gaussian_splatting_tpu/ops/blend_pallas.py:954", tctx["err_bwd"],
             cuda_ms(lambda: bl.blend_backward(*args, packed, ct, grid_x=gx), iters=10),
             cuda_ms(lambda: bl.blend_backward_plain(*args, packed, ct, grid_x=gx),
                     iters=1, warmup=0),
@@ -829,8 +845,7 @@ def train_timing(tctx, launches):
             torch.arange(P, device=d_exp.device), (offsets[1:] - offsets[:-1]).long())
         seg_rows = d_exp[int(offsets[0]): int(offsets[-1])]
         rows.append(kernel_row(
-            "segment_reduce", "gaussian_splatting_tpu/ops/segreduce.py:202", launches,
-            tctx["err_seg"],
+            "segment_reduce", "gaussian_splatting_tpu/ops/segreduce.py:202", tctx["err_seg"],
             cuda_ms(lambda: sr.segment_reduce_rows(d_exp, offsets)),
             cuda_ms(lambda: sr.segment_reduce_rows_plain(d_exp, offsets), iters=3, warmup=1),
             tctx["n_rows"] * 4 * sr.COLS + (P + 1) * 4 + P * 4 * sr.COLS, 0,
@@ -883,10 +898,357 @@ def bench_phase(device="cuda", iters=10):
           f"{WIDTH}x{HEIGHT} on {card()}")
 
 
-def kernel_row(name, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, library_ms):
-    """One kernel's JSON row.  ``launches`` maps each path the kernel runs on
-    to its launch count there; ``launches`` is the count on the path that
-    brought the kernel (render for K1-K3, train for K4-K6)."""
+def segscan_phase(tctx):
+    """K7 on the train parity's own rows: the expansion-order gradient rows
+    (field-major), flagged at each non-empty Gaussian segment's first slot.
+    One launch is the path's; then the twin (bitwise, as int32 patterns),
+    K6's sums at each segment's last slot (bitwise), and the timings."""
+    import torch
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch.ops import segreduce as sr
+    from gaussian_splatting_torch.ops import segscan as ss
+
+    phase("segscan")
+    d_exp, offsets = tctx["d_exp"], tctx["offsets"]
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    vals = d_exp[lo:hi].t().contiguous()  # (10, N)
+    n = vals.shape[1]
+    first, last = offsets[:-1].long() - lo, offsets[1:].long() - lo
+    nonempty = last > first
+    flags = torch.zeros(n, device=vals.device)
+    flags[first[nonempty]] = 1.0
+    with torch.no_grad():
+        _kernels.reset_launches()
+        out = ss.segmented_cumsum(vals, flags)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launches)
+        print(f"launches during the segscan path: {launches}")
+        if launches["segscan"] != 1:
+            raise RuntimeError("segscan kernel did not launch once on its path")
+        plain = ss.segmented_cumsum_plain(vals, flags)
+        same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
+        err = float((out - plain).abs().max())
+        print(f"segscan: {vals.shape[0]} x {n} values, {int(nonempty.sum())} segments; "
+              f"bitwise equal to its twin: {same} (max |diff| {err:.3e})")
+        if not same:
+            raise RuntimeError("segscan kernel disagrees with its plain version")
+        seg = sr.segment_reduce_rows(d_exp, offsets)
+        ends = out[:, last[nonempty] - 1].t()
+        same_k6 = torch.equal(ends.view(torch.int32), seg[nonempty].view(torch.int32))
+        print(f"segscan at each segment's last slot vs segment_reduce: bitwise equal {same_k6}")
+        if not same_k6:
+            raise RuntimeError("segscan segment totals disagree with segment_reduce")
+        ms = cuda_ms(lambda: ss.segmented_cumsum(vals, flags))
+        plain_ms = cuda_ms(lambda: ss.segmented_cumsum_plain(vals, flags), iters=3, warmup=1)
+        print(f"segscan: {ms:.4f} ms per launch (CUDA events), plain {plain_ms:.4f} ms")
+        # the profiler records none of the first few launches it traces (none
+        # around a lone launch), so trace 50 and average those it recorded
+        print("50 launches under the profiler:", end=" ")
+        own_ms = profile_call(lambda: [ss.segmented_cumsum(vals, flags) for _ in range(50)],
+                              ("segscan",))["segscan"]
+    row = kernel_row("segscan", "gaussian_splatting_tpu/ops/segscan.py:79", err, ms, plain_ms,
+                     2 * vals.numel() * 4 + n * 4, 0, None)
+    print(f"  segscan: {ms:.4f} ms (profiler {own_ms:.4f}, plain {plain_ms:.4f}, "
+          f"library none, bound {row['bound_ms']:.4f} by {row['bound_by']})")
+    return launches, row
+
+
+CLI_ITERATIONS = 300
+CLI_RESUME_ITERATIONS = 310
+CLI_PROFILED_ITERATION = 150
+CLI_PSNR_GAIN_DB = 1.0
+# The training views orbit at radius 20, not the fixture's 4: create_from_pcd
+# gives the 500k fixture means 3-NN scales of ~0.04, and from radius 4 each
+# then touches ~37 tiles at 1080p, 18.7M slots per view; with the loop's
+# 2x headroom that is past the 2^24-slot instance buffer (instances.
+# MAX_CAPACITY, the JAX package's limit too).  From radius 20 a view needs
+# ~3.4M slots, so the buffer fits even after two capacity growths.
+CLI_ORBIT_RADIUS = 20.0
+
+
+def make_cli_scene(root, model_dir, device="cuda"):
+    """The training CLI's Blender scene: 8 train and 2 test views on orbits
+    of radius ``CLI_ORBIT_RADIUS`` about the y axis, each the port's render
+    of the fixture's model, and ``points3d.ply`` with that model's means and
+    DC colours."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from gaussian_splatting_torch.config import RasterizeConfig
+    from gaussian_splatting_torch.data.ply import save_point_cloud_ply
+    from gaussian_splatting_torch.models.gaussians import load_model_ply
+    from gaussian_splatting_torch.ops.camera_math import (
+        focal_to_fov,
+        fov_to_focal,
+        look_at,
+        make_camera,
+    )
+    from gaussian_splatting_torch.ops.sh import SH_C0
+    from gaussian_splatting_torch.render import render_camera
+    from gaussian_splatting_torch.train.loop import load_raster_state
+    from gaussian_splatting_torch.utils.image import to_uint8, write_image
+
+    phase("train CLI scene")
+    t0 = time.perf_counter()
+    scene_dir = os.path.join(root, "cli_scene")
+    model = load_model_ply(
+        os.path.join(model_dir, "point_cloud", f"iteration_{ITERATION}", "point_cloud.ply"),
+        max_sh_degree=SH_DEGREE, device=device)
+    raster = load_raster_state(model_dir, RasterizeConfig())
+    bg = torch.zeros(3, device=device)
+    fovx = 0.9
+    fovy = focal_to_fov(fov_to_focal(fovx, WIDTH), HEIGHT)
+
+    def frame(kind, i, angle, height):
+        r = CLI_ORBIT_RADIUS
+        eye = [r * math.sin(angle), height, -r * math.cos(angle)]
+        R, t = look_at(eye, [0.0, 0.0, 0.0])
+        cam = make_camera(R, t, fovx, fovy, WIDTH, HEIGHT, device=device)
+        with torch.no_grad():
+            img, _, _ = render_camera(model, SimpleNamespace(cam=cam), raster, bg)
+        rel = f"{kind}/r_{i}"
+        write_image(os.path.join(scene_dir, rel + ".png"),
+                    to_uint8(img.cpu().numpy().transpose(1, 2, 0)))
+        c2w = np.eye(4)
+        c2w[:3, :3] = R
+        c2w[:3, 3] = eye
+        c2w[:3, 1:3] *= -1  # COLMAP -> OpenGL axes, as Blender stores them
+        return {"file_path": rel, "transform_matrix": c2w.tolist()}
+
+    views = {"train": [(2 * math.pi * k / 8, -1.5 if k % 2 else 3.0) for k in range(8)],
+             "test": [(2 * math.pi * (k + 0.5) / 8, 0.75) for k in (1, 5)]}
+    for kind, poses in views.items():
+        os.makedirs(os.path.join(scene_dir, kind))
+        frames = [frame(kind, i, a, h) for i, (a, h) in enumerate(poses)]
+        with open(os.path.join(scene_dir, f"transforms_{kind}.json"), "w") as f:
+            json.dump({"camera_angle_x": fovx, "frames": frames}, f)
+    n = int(model.num_alive())
+    rgb = model.features_dc[:n, 0].detach().cpu().numpy() * SH_C0 + 0.5
+    save_point_cloud_ply(os.path.join(scene_dir, "points3d.ply"),
+                         model.means3d[:n].detach().cpu().numpy(), to_uint8(rgb))
+    print(f"CLI scene in {time.perf_counter() - t0:.2f} s: 8 train + 2 test views at "
+          f"{WIDTH}x{HEIGHT} on orbits of radius {CLI_ORBIT_RADIUS}, points3d.ply with {n} "
+          f"points")
+    return scene_dir
+
+
+class LoopProbe:
+    """Instruments ``train.loop`` for one CLI run, restoring it on exit:
+    the host time at which each ``train_step`` is queued, one profiled
+    steady step, and the synchronised wall time of each boundary operation
+    (densify, opacity reset, eval, snapshot, checkpoint, slack probe,
+    capacity growth)."""
+
+    BOUNDARIES = ("densify_step", "opacity_reset_step", "report_psnr", "save_checkpoint",
+                  "estimate_instance_slack", "grow_train_state")
+
+    def __init__(self, profile_iteration=None):
+        self.profile_iteration = profile_iteration
+        self.starts = []
+        self.first_step = None
+        self.boundaries = []  # (iteration, name, ms)
+        self.profiled = None
+
+    def __enter__(self):
+        import torch
+
+        from gaussian_splatting_torch import _kernels
+        from gaussian_splatting_torch.scene import Scene
+        from gaussian_splatting_torch.train import loop
+
+        self._saved = [(loop, n, getattr(loop, n)) for n in ("train_step",) + self.BOUNDARIES]
+        self._saved.append((Scene, "save", Scene.save))
+        real_step = loop.train_step
+
+        def train_step(state, *args, **kw):
+            if self.first_step is None:
+                self.first_step = int(state.step)
+            self.starts.append(time.perf_counter())
+            if len(self.starts) == self.profile_iteration:
+                torch.cuda.synchronize()
+                held = []
+                print(f"profiled steady iteration {self.profile_iteration}:", end=" ")
+                profile_call(lambda: held.append(real_step(state, *args, **kw)),
+                             _kernels.TRAIN_KERNELS)
+                self.profiled = held[0]
+                return held[0]
+            return real_step(state, *args, **kw)
+
+        def timed(name, fn):
+            def wrapper(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.boundaries.append(((self.first_step or 0) + len(self.starts), name,
+                                        (time.perf_counter() - t0) * 1e3))
+                return result
+            return wrapper
+
+        loop.train_step = train_step
+        for name in self.BOUNDARIES:
+            setattr(loop, name, timed(name, getattr(loop, name)))
+        Scene.save = timed("snapshot", Scene.save)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+        return False
+
+    def steady_ms(self):
+        """Wall time of each steady iteration k (queue of step k to queue of
+        step k + 1), leaving out the first epoch's uploads, the 100-iteration
+        boundaries and the iteration after each, and the profiled one."""
+        p = self.profile_iteration or -10
+        return [(self.starts[k] - self.starts[k - 1]) * 1e3
+                for k in range(10, len(self.starts))
+                if k % 100 not in (0, 1) and abs(k - p) > 1]
+
+
+class Tee:
+    """A stdout that also keeps every line written."""
+
+    def __init__(self, stream):
+        self.stream, self.lines, self._buf = stream, [], ""
+
+    def write(self, text):
+        self.stream.write(text)
+        self._buf += text
+        *done, self._buf = self._buf.split("\n")
+        self.lines += done
+        return len(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def train_cli_phase(root, scene_dir, seed, device="cuda"):
+    """``python -m gaussian_splatting_torch.train`` in-process at full width:
+    300 iterations from create_from_pcd on 500k points at 1080p (densify at
+    100, 200 and 300, opacity reset at 200, eval, snapshots at 100 and 300,
+    a checkpoint at 300), a resume from that checkpoint to 310, then the
+    render CLI on the result.  Checks the files, the launches, the resume
+    point and the test-view PSNR gain over the initial model."""
+    import contextlib
+    import statistics
+
+    import torch
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch import render as render_cli
+    from gaussian_splatting_torch.train import cli
+
+    phase("train CLI")
+    out = os.path.join(root, "cli_model")
+    argv = ["-s", scene_dir, "-m", out, "-r", "1", "--eval",
+            "--densify_from_iter", "50", "--densification_interval", "100",
+            "--densify_until_iter", "301", "--opacity_reset_interval", "200",
+            "--test_iterations", "300", "--save_iterations", "100", "300",
+            "--checkpoint_iterations", "300", "--disable_viewer", "--seed", str(seed),
+            "--device", device]
+    tee = Tee(sys.stdout)
+    _kernels.reset_launches()
+    with LoopProbe(CLI_PROFILED_ITERATION) as probe, contextlib.redirect_stdout(tee):
+        t0 = time.perf_counter()
+        cli.main(argv + ["--iterations", str(CLI_ITERATIONS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    print(f"launches during the train CLI run: {launches}")
+    missing = [k for k in _kernels.TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the train CLI path: {missing}")
+    if len(probe.starts) != CLI_ITERATIONS or probe.first_step != 0:
+        raise RuntimeError(f"expected {CLI_ITERATIONS} steps from 0, got "
+                           f"{len(probe.starts)} from {probe.first_step}")
+    steady = probe.steady_ms()
+    print(f"{CLI_ITERATIONS} iterations in {wall:.3f} s wall; {len(steady)} steady "
+          f"iterations: mean {statistics.mean(steady):.3f} ms, stdev "
+          f"{statistics.stdev(steady):.3f}, median {statistics.median(steady):.3f}, "
+          f"min {min(steady):.3f}, max {max(steady):.3f} ms")
+    for it, name, ms in probe.boundaries:
+        print(f"  boundary at iteration {it}: {name} {ms:.3f} ms wall (synchronised)")
+    reports = [ln for ln in tee.lines
+               if "instance_slack" in ln or "capacity" in ln or "overflow" in ln]
+    print("slack and capacity changes the loop reported:")
+    for ln in reports:
+        print(f"  {ln.strip()}")
+    if any("overflow" in ln for ln in reports):
+        print("  (overflowed steps were no-ops and were taken again)")
+
+    ckpt = os.path.join(out, f"chkpnt{CLI_ITERATIONS}.pth")
+    with LoopProbe() as resumed:
+        t0 = time.perf_counter()
+        cli.main(argv + ["--iterations", str(CLI_RESUME_ITERATIONS), "--start_checkpoint", ckpt])
+        torch.cuda.synchronize()
+    print(f"resumed run: first step queued at iteration {resumed.first_step + 1}, "
+          f"{len(resumed.starts)} steps, {time.perf_counter() - t0:.3f} s wall")
+    if resumed.first_step != CLI_ITERATIONS or len(resumed.starts) != 10:
+        raise RuntimeError("the resumed run did not start at iteration 301")
+    expected = ["cfg_args.json", "opt_args.json", "pipe_args.json", "cameras.json", "input.ply",
+                "raster_state.json", "exposure.json", os.path.basename(ckpt)] + [
+        os.path.join("point_cloud", f"iteration_{it}", "point_cloud.ply")
+        for it in (100, CLI_ITERATIONS, CLI_RESUME_ITERATIONS)]
+    absent = [f for f in expected if not os.path.exists(os.path.join(out, f))]
+    if absent:
+        raise RuntimeError(f"the train CLI did not write {absent}")
+    print(f"files written: {expected}")
+
+    records = render_cli.main(["-m", out, "--skip_train", "--device", device])
+    if len(records) != 2:
+        raise RuntimeError(f"expected 2 rendered test views, got {len(records)}")
+    for r in records:
+        print(f"  render CLI view {r['index']}: {r['seconds'] * 1e3:.1f} ms wall, slot demand "
+              f"{r['num_instances']}, retries {r['retries']}")
+    psnr_gain(scene_dir, out, device)
+    return launches
+
+
+def psnr_gain(scene_dir, out, device="cuda"):
+    """Mean test-view PSNR of the iteration-300 snapshot against that of the
+    initial create_from_pcd model, both rendered against the test PNGs."""
+    import torch
+
+    from gaussian_splatting_torch.config import ModelConfig, RasterizeConfig, load_config
+    from gaussian_splatting_torch.data.dataset import detect_and_load_scene
+    from gaussian_splatting_torch.models.gaussians import create_from_pcd
+    from gaussian_splatting_torch.render import render_camera
+    from gaussian_splatting_torch.scene import Scene
+    from gaussian_splatting_torch.train.loop import load_raster_state
+    from gaussian_splatting_torch.utils.image import psnr
+
+    cfg = load_config(ModelConfig, os.path.join(out, "cfg_args.json"))
+    snap = Scene(cfg, load_iteration=CLI_ITERATIONS, shuffle=False, device=device)
+    pc = detect_and_load_scene(scene_dir).point_cloud
+    init = create_from_pcd(pc.points, pc.colors, max_sh_degree=SH_DEGREE,
+                           spatial_lr_scale=snap.cameras_extent, device=device)
+    raster = load_raster_state(out, RasterizeConfig())
+    bg = torch.zeros(3, device=device)
+
+    def mean_psnr(model):
+        vals = []
+        with torch.no_grad():
+            for cam in snap.get_test_cameras():
+                img, _, _ = render_camera(model, cam, raster, bg)
+                vals.append(float(psnr(img, torch.from_numpy(cam.image).to(device))))
+        return sum(vals) / len(vals), vals
+
+    before, b_views = mean_psnr(init)
+    after, a_views = mean_psnr(snap.gaussians)
+    print(f"test-view PSNR: initial model {before:.4f} dB {b_views}, iteration "
+          f"{CLI_ITERATIONS} snapshot {after:.4f} dB {a_views}: gain {after - before:.4f} dB "
+          f"(required {CLI_PSNR_GAIN_DB})")
+    if not after - before >= CLI_PSNR_GAIN_DB:
+        raise RuntimeError("training did not raise the test-view PSNR by 1 dB")
+
+
+def kernel_row(name, replaces, err, ms, plain_ms, n_bytes, n_ops, library_ms):
+    """One kernel's JSON row; ``main`` adds its launches once every path
+    has run."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_PER_S * 1e3
     return {
@@ -894,8 +1256,6 @@ def kernel_row(name, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, libr
         "route": "cuda",
         "source": f"gaussian_splatting_torch/csrc/{name}.cu",
         "replaces": replaces,
-        "launches": launches["render" if name in RENDER_KERNELS else "train"][name],
-        "launches_by_path": {path: counts[name] for path, counts in launches.items()},
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -903,6 +1263,21 @@ def kernel_row(name, replaces, launches, err, ms, plain_ms, n_bytes, n_ops, libr
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
     }
+
+
+def add_launches(rows, launches):
+    """Each row's ``launches``: the count on the path that carries the kernel
+    (render for K1-K3, train for K4-K6, segscan for K7), with every path's
+    count beside it."""
+    from gaussian_splatting_torch import _kernels
+
+    for r in rows:
+        name = r["name"]
+        home = ("render" if name in _kernels.RENDER_KERNELS
+                else "train" if name in _kernels.TRAIN_KERNELS else "segscan")
+        r["launches"] = launches[home][name]
+        r["launches_by_path"] = {path: counts[name] for path, counts in launches.items()}
+    return rows
 
 
 def main():
@@ -916,21 +1291,23 @@ def main():
     _, model_dir = make_fixture(root, args.seed)
     launches = {"render": main_path_phase(model_dir)}
     ctx = parity(model_dir)
-    rows = timing(ctx, launches)
+    rows = timing(ctx)
     profile_phase(ctx)
     del ctx
     setup = train_setup(model_dir, args.seed)
     tctx = train_parity(setup)
-    launches["train"], _ = train_path_phase(setup)
-    for r in rows:  # K1-K3 launch on the train path too
-        r["launches_by_path"]["train"] = launches["train"][r["name"]]
-    rows += train_timing(tctx, launches)
-    del setup, tctx
+    launches["train"] = train_path_phase(setup)
+    rows += train_timing(tctx)
+    del setup
     bench_phase()
+    scene_dir = make_cli_scene(root, model_dir)
+    launches["train CLI"] = train_cli_phase(root, scene_dir, args.seed)
+    launches["segscan"], row = segscan_phase(tctx)
+    rows.append(row)
+    del tctx
     shutil.rmtree(root, ignore_errors=True)
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": add_launches(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
-
 
 if __name__ == "__main__":
     sys.exit(main())

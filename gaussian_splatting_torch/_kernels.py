@@ -33,10 +33,11 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas", "-v",
 )
 
-KERNELS = (
-    "expand", "blend_forward", "untile",  # the render path
-    "retile", "blend_backward", "segment_reduce",  # its backward, for training
-)
+# The kernels each path launches: the render path K1-K3, the training step
+# (and the training loop around it) K1-K6; K7 lies on no path.
+RENDER_KERNELS = ("expand", "blend_forward", "untile")
+TRAIN_KERNELS = RENDER_KERNELS + ("retile", "blend_backward", "segment_reduce")
+KERNELS = TRAIN_KERNELS + ("segscan",)
 
 # Launch counts per kernel.  ``launch`` adds one per successful launch.
 launches: Dict[str, int] = {name: 0 for name in KERNELS}

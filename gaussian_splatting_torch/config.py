@@ -1,10 +1,10 @@
 """Configuration dataclasses, field for field the JAX package's.
 
 Same names and defaults as ``gaussian_splatting_tpu/config.py``, so the port
-reads the ``cfg_args.json``, ``pipe_args.json`` and ``raster_state.json``
-that the JAX trainer writes.  ``impl`` values: ``"auto"``, ``"pallas"`` and
-``"jax"`` select the tiled path through the hand-written kernels, and
-``"dense"`` the per-pixel oracle.
+reads and writes the ``cfg_args.json``, ``opt_args.json`` and
+``pipe_args.json`` that the JAX trainer writes.  ``impl`` values:
+``"auto"``, ``"pallas"`` and ``"jax"`` select the tiled path through the
+hand-written kernels, and ``"dense"`` the per-pixel oracle.
 """
 
 from __future__ import annotations
@@ -88,6 +88,12 @@ class RasterizeConfig:
     impl: str = "auto"  # "auto" | "pallas" | "jax" | "dense"
     convert_SHs_python: bool = False
     compute_cov3D_python: bool = False
+
+
+def save_config(cfg, path: str) -> None:
+    """Write a config dataclass as the JSON the JAX trainer writes."""
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
 
 
 def load_config(cls, path: str):

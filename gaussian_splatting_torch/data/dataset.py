@@ -3,7 +3,8 @@
 Counterpart of the Blender half of ``gaussian_splatting_tpu/data/
 dataset.py``: the OpenGL -> COLMAP axis flip, nerf++ normalization (camera
 centroid radius * 1.1), and the 100k-random-point init when the scene has
-no ``points3d.ply``.  COLMAP scenes belong to a later slice.
+no ``points3d.ply``.  COLMAP scenes belong to the next slice of the port
+(the COLMAP reader with depth maps).
 """
 
 from __future__ import annotations
@@ -121,7 +122,8 @@ def read_blender_scene(
 def detect_and_load_scene(path: str, **kw) -> SceneInfo:
     if os.path.exists(os.path.join(path, "sparse")):
         raise NotImplementedError(
-            "COLMAP scenes: the COLMAP reader (with depth maps) is a later slice"
+            "COLMAP scenes are not ported yet: the COLMAP reader with depth maps "
+            "and native decoding is the next slice of the port"
         )
     if os.path.exists(os.path.join(path, "transforms_train.json")):
         print("Found transforms_train.json file, assuming Blender data set!")

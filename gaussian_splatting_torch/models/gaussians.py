@@ -20,7 +20,8 @@ from torch import nn
 
 from gaussian_splatting_torch import resolve_device
 from gaussian_splatting_torch.data.ply import load_gaussian_ply
-from gaussian_splatting_torch.ops.sh import num_sh_coeffs
+from gaussian_splatting_torch.ops.knn import knn_mean_sq_dist, knn_mean_sq_dist_exact
+from gaussian_splatting_torch.ops.sh import num_sh_coeffs, rgb_to_sh
 
 PARAM_NAMES = ("means3d", "features_dc", "features_rest", "opacities", "scales", "quats")
 # densification statistics (reference max_radii2D / xyz_gradient_accum / denom)
@@ -112,6 +113,48 @@ class GaussianModel(nn.Module):
             torch.sigmoid(self.opacities) * self.alive,
             sh,
         )
+
+
+def create_from_pcd(
+    points: np.ndarray,
+    colors: np.ndarray,
+    *,
+    max_sh_degree: int,
+    spatial_lr_scale: float,
+    capacity: Optional[int] = None,
+    device=None,
+) -> GaussianModel:
+    """A model from a point cloud, as the JAX package's ``create_from_pcd``:
+    SH DC from the colours, isotropic log-scales from the mean 3-NN squared
+    distance (clipped at 1e-7; exact up to 20k points, the Morton window
+    above), identity rotations, opacity 0.1, active SH degree 0.  Capacity
+    defaults to ``int(n * 1.5) + 1024``; a larger cloud is subsampled with
+    ``default_rng(0)``."""
+    n = points.shape[0]
+    capacity = capacity or int(n * 1.5) + 1024
+    if n > capacity:
+        print(f"[create_from_pcd] subsampling init cloud {n} -> {capacity} points "
+              "(capacity limit)")
+        sel = np.random.default_rng(0).choice(n, capacity, replace=False)
+        points = np.asarray(points)[sel]
+        colors = np.asarray(colors)[sel]
+        n = capacity
+    model = GaussianModel.empty(capacity, max_sh_degree, device=device)
+    dev = model.means3d.device
+    pts = torch.from_numpy(np.asarray(points, np.float32)).to(dev)
+    dist_fn = knn_mean_sq_dist_exact if n <= 20_000 else knn_mean_sq_dist
+    log_scale = torch.log(torch.sqrt(torch.clamp(dist_fn(pts), min=1e-7)))
+    tenth = torch.tensor(0.1, dtype=torch.float32)
+    with torch.no_grad():
+        model.means3d[:n] = pts
+        model.features_dc[:n, 0] = rgb_to_sh(
+            torch.from_numpy(np.asarray(colors, np.float32)).to(dev))
+        model.opacities[:n] = float(torch.log(tenth / (1.0 - tenth)))  # inverse_sigmoid
+        model.scales[:n] = log_scale[:, None]
+        model.alive[:n] = True
+    model.sh_degree = 0
+    model.spatial_lr_scale = float(spatial_lr_scale)
+    return model
 
 
 def load_model_ply(

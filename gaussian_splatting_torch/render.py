@@ -27,21 +27,11 @@ from gaussian_splatting_torch.config import (
 )
 from gaussian_splatting_torch.models.gaussians import GaussianModel
 from gaussian_splatting_torch.ops.rasterize import RenderResult, render
+from gaussian_splatting_torch.train.loop import load_raster_state
 from gaussian_splatting_torch.train.step import apply_exposure
 from gaussian_splatting_torch.utils.image import to_uint8, write_image
 
 MAX_EVAL_SLACK = 512.0
-
-
-def load_raster_state(model_path: str, raster: RasterizeConfig) -> RasterizeConfig:
-    """Raise ``instance_slack`` to the trained value in raster_state.json."""
-    path = os.path.join(model_path, "raster_state.json")
-    if not os.path.exists(path):
-        return raster
-    with open(path) as f:
-        rs = json.load(f)
-    slack = max(float(rs["instance_slack"]), raster.instance_slack)
-    return dataclasses.replace(raster, instance_slack=slack)
 
 
 def render_camera(
@@ -139,7 +129,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         ),
     )
 
-    scene = Scene(model_cfg, load_iteration=args.iteration, device=device)
+    scene = Scene(model_cfg, load_iteration=args.iteration, shuffle=False, device=device)
     model = scene.gaussians
 
     pretrained_exposures = None

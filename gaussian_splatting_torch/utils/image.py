@@ -1,4 +1,4 @@
-"""Image file I/O.
+"""Image file I/O and image metrics.
 
 PNG and the other formats go through PIL, which both this repository's
 machines provide.  Resizing is PIL's BILINEAR, the resampling the JAX
@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def image_size(path: str) -> Tuple[int, int]:
@@ -42,3 +43,9 @@ def write_image(path: str, pixels: np.ndarray) -> None:
 def to_uint8(img: np.ndarray) -> np.ndarray:
     """[0, 1] floats -> uint8 by truncation, as the JAX CLI writes PNGs."""
     return (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB for images in [0, 1]."""
+    mse = torch.mean((img1 - img2) ** 2)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse))

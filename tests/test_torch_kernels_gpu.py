@@ -188,9 +188,34 @@ def test_render_gradients_kernels_match_plain_path(cuda):
     counts = dict(_kernels.launches)
     fast = grads(True)
     torch.cuda.synchronize()
-    for name in _kernels.KERNELS:
+    for name in _kernels.TRAIN_KERNELS:
         assert _kernels.launches[name] == counts[name] + 1, name
     plain = grads(False)
     for a, b in zip(fast, plain):
         scale = float(b.abs().max()) + 1e-12
         assert float((a - b).abs().max()) <= 3e-4 * scale
+
+
+def test_segscan_kernel_matches_plain(cuda):
+    """K7 against its twin, bitwise (compared as int32 bit patterns, so a
+    signed zero counts), with long, short, empty-valued and leading
+    segments."""
+    from gaussian_splatting_torch.ops import segscan as ss
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    n = 40_000
+    vals = torch.randn((10, n), generator=g, device=cuda)
+    vals[:, 5000:7000] = 0.0
+    vals[:, 9000] = -0.0
+    flags = (torch.rand((n,), generator=g, device=cuda) < 0.3).to(torch.float32)
+    flags[:50] = 0.0  # a leading run before the first flag
+    flags[5000] = flags[7000] = flags[9000] = 1.0
+    flags[5001:7000] = 0.0
+    flags[20_000:21_500] = 0.0  # one long segment
+    before = _kernels.launches["segscan"]
+    out = ss.segmented_cumsum(vals, flags)
+    torch.cuda.synchronize()
+    assert _kernels.launches["segscan"] == before + 1
+    ref = ss.segmented_cumsum_plain(vals, flags)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert bool((out[:, 5000:7000].view(torch.int32) == 0).all())
