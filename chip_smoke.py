@@ -16,7 +16,8 @@ Phases (any failure raises, and the script exits non-zero):
               test views on the card, once each; K1-K3 must have launched
   5. render parity  K1-K3 against their plain PyTorch twins on the render
               path's inputs, the whole render against the all-plain path, and
-              a small render against the dense oracle
+              a small render against the dense oracle; the blend's pairs,
+              instances per tile and K2's warp-steps (``blend_work``)
   6. render timing  CUDA-event times of K1-K3, their twins and the library
               yardsticks, beside the bounds computed from this run's inputs
   7. render profile one view under torch.profiler
@@ -24,7 +25,9 @@ Phases (any failure raises, and the script exits non-zero):
               model with seeded noise, view 0, full width): K4 bitwise, K5
               and K6 within their tolerances against their twins, the whole
               field gradient against the all-twin path, and a small scene's
-              gradients against the dense oracle's autograd
+              gradients against the dense oracle's autograd; K2's and K5's
+              warp-steps, shared-memory instructions and shuffles, before this
+              design of the blend kernels and now
   9. train path     ``train.step.train_step`` 13 times over the 3 views (the
               last one profiled), then ``densify_step`` and
               ``opacity_reset_step``, against the fixture model's own renders;
@@ -66,20 +69,24 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # Float operations per (pixel, instance) pair, counted from the kernels'
-# code (expf counts as one).  A pair "contributes" when its alpha is
-# eligible (power <= POWER_EPS, alpha >= 1/255) and its stream position is
-# below the pixel's NB; other visited pairs only compute alpha.
-# csrc/blend_forward.cu: dx, dy (2), power (9), opacity * expf (2), the
-# 0.99 cap (1), the two eligibility compares (2) on every pair visited;
-# then 1 - alpha, T (1 - alpha), the T_EPS compare (3) on an eligible pair,
-# and the weight and four weighted adds (9) on a contributing one.
+# code (expf counts as one; nothing is fused, the kernels build with
+# -fmad=false).  A pair "contributes" when its alpha is eligible (power <=
+# POWER_EPS, alpha >= 1/255) and its stream position is below the pixel's
+# NB; other visited pairs only compute alpha.
+# csrc/blend_forward.cu, ``blend_forward_kernel``'s inner loop: dx, dy (2),
+# power (9), opacity * expf (2), the 0.99 cap (1), the two eligibility
+# compares (2) on every pair visited; then 1 - alpha, T (1 - alpha), the
+# T_EPS compare (3) on an eligible pair, and the weight and four weighted
+# adds (9) on a contributing one.
 BLEND_VISIT_OPS = 16
 BLEND_ELIGIBLE_OPS = 3
 BLEND_CONTRIB_OPS = 9
-# csrc/blend_backward.cu: alpha as in the forward plus the NB compare (17)
-# on every pair replayed; on a contributing pair q (7), w, w q, the prefix
-# (3), gl (7), T (1), the 9 products of the summed terms (9), and one add
-# into each of the instance's 10 sums (10)
+# csrc/blend_backward.cu, ``replay`` per pixel: alpha as in the forward plus
+# the NB compare (17; a thread's two pixels share one dx, still counted per
+# pixel); ``terms`` on a contributing pair: q (7), w, w q, the prefix (3),
+# gl (7), T (1), the 9 products of the summed terms (9); and one add into
+# each of the instance's 10 sums (10: the add of a thread's two pixels or a
+# butterfly or warp-partial add).
 BLEND_BWD_VISIT_OPS = 17
 BLEND_BWD_CONTRIB_OPS = 7 + 3 + 7 + 1 + 9 + 10
 
@@ -367,13 +374,14 @@ def parity(model_dir, device="cuda"):
         pairs = int(torch.where(done, nb - starts + 1, ends - starts).sum())
         need = torch.where(done.all(dim=1), nb.max(dim=1).values + 1, ends[:, 0])
         n_read = int((need - starts[:, 0]).sum())
-        contrib = contributing_pairs(layout, fields, packed, gx)
+        contrib, _ = contributing_pairs(layout, fields, packed, gx)
         n_done = int(done.sum())
         blend_ops = (BLEND_VISIT_OPS * pairs + BLEND_CONTRIB_OPS * contrib
                      + BLEND_ELIGIBLE_OPS * (contrib + n_done))
         print(f"blend pairs visited {pairs}, of which contributing {contrib} "
               f"({100 * contrib / pairs:.2f}%), pixels saturated {n_done}; instances read "
               f"{n_read}; {blend_ops} float operations")
+        blend_work(layout, packed)
     return dict(table=table, ekw=ekw, cap_int=cap_int, bargs=bargs, gx=gx, gy=gy,
                 num_tiles=num_tiles, packed=packed, ukw=ukw, blend_ops=blend_ops,
                 n_read=n_read, err_expand=err_expand, err_blend=err_blend,
@@ -383,7 +391,9 @@ def parity(model_dir, device="cuda"):
 def contributing_pairs(layout, fields, packed, grid_x, chunk=1 << 15):
     """(pixel, instance) pairs whose alpha is eligible and whose stream
     position is below the pixel's NB: each valid slot against its tile's
-    256 pixels, alpha formed as the kernels and their twins form it."""
+    256 pixels, alpha formed as the kernels and their twins form it.  Also,
+    for each warp layout of ``warp_view``, the (instance, warp) steps in
+    which at least one of the warp's pixels contributes."""
     import torch
 
     from gaussian_splatting_torch.ops import blend as bl
@@ -393,6 +403,7 @@ def contributing_pairs(layout, fields, packed, grid_x, chunk=1 << 15):
     nb = packed[..., bl.O_NB]
     n = int(layout.n_valid)
     total = torch.zeros((), dtype=torch.int64, device=dev)
+    warps = {d: torch.zeros((), dtype=torch.int64, device=dev) for d in WARP_LAYOUTS}
     for s0 in range(0, n, chunk):
         pos = torch.arange(s0, min(s0 + chunk, n), dtype=torch.int32, device=dev)
         tile = torch.searchsorted(layout.tile_ends, pos, right=True)
@@ -402,9 +413,87 @@ def contributing_pairs(layout, fields, packed, grid_x, chunk=1 << 15):
         power = -0.5 * (f[:, bl.F_CA, None] * dx * dx + f[:, bl.F_CC, None] * dy * dy) - (
             f[:, bl.F_CB, None] * dx * dy)
         alpha = torch.clamp(f[:, bl.F_OP, None] * torch.exp(power), max=bl.ALPHA_CAP)
-        total += ((power <= bl.POWER_EPS) & (alpha >= bl.ALPHA_MIN)
-                  & (pos.float()[:, None] < nb[tile])).sum()
-    return int(total)
+        c = (power <= bl.POWER_EPS) & (alpha >= bl.ALPHA_MIN) & (pos.float()[:, None] < nb[tile])
+        total += c.sum()
+        for d in WARP_LAYOUTS:
+            warps[d] += warp_view(c, d).any(dim=-1).sum()
+    return int(total), {d: int(w) for d, w in warps.items()}
+
+
+# The pixels of a tile (16 row + col) each warp covers: "rows", 8 warps of
+# one thread per pixel, warp w on rows 2w and 2w + 1 (K2, and K5 before this
+# design); "quarters", 4 warps of two pixels per thread, warp w on the 8x8
+# quarter (w % 2, w // 2) (K5 now).
+WARP_LAYOUTS = ("rows", "quarters")
+
+
+def warp_view(x, layout):
+    """(..., 256) per-pixel values as (..., warps, pixels of the warp)."""
+    lead = x.shape[:-1]
+    if layout == "rows":
+        return x.reshape(*lead, 8, 32)
+    return x.reshape(*lead, 2, 8, 2, 8).transpose(-3, -2).reshape(*lead, 4, 64)
+
+
+# Each kernel's warp layout, and its shared-memory instructions and shuffles
+# per warp-step (one staged instance against a warp's pixels), counted from
+# the kernels' code, before this design (PR 3) and now.  K2 reads 6 fields
+# on every step and the 4 colour fields on a step where a pixel contributes:
+# 10 scalar reads before, 3 float4 broadcasts now.  K5 reads all 10 fields
+# on every step and stores the warp's 10 sums on every step: lane 0's 10
+# scalar stores before, one store by 10 lanes now.  It sums over the warp
+# only on a step where a pixel contributes: ten 5-level shuffle-down trees
+# before, the 12-shuffle xor reduce-scatter now.
+BLEND_DESIGNS = {  # (warp layout, reads, stores, shuffles)
+    "K2": {"PR 3": ("rows", 10, 0, 0), "now": ("rows", 3, 0, 0)},
+    "K5": {"PR 3": ("rows", 10, 10, 50), "now": ("quarters", 3, 1, 12)},
+}
+K5_BATCH_PR3 = 128  # PR 3's K5 replayed whole batches of 128 instances
+
+
+def blend_work(layout, packed, contrib_warps=None):
+    """What the blend kernels do on these inputs, from the twin's NB and
+    contributor masks, for PR 3's design and this one: the instances per
+    tile; K2's warp-steps (each warp walks until its last pixel is done);
+    K5's (PR 3: every warp replayed every instance of each staged batch until
+    all the tile's pixels were past their NB; now: every warp replays the
+    instances below its own pixels' largest NB) with those that hold a
+    contributing pixel; and the shared-memory instructions and shuffles."""
+    import torch
+
+    from gaussian_splatting_torch.ops import blend as bl
+
+    starts = layout.tile_starts.long()
+    ends = layout.tile_ends.long()
+    counts = (ends - starts).clamp(min=0)
+    q = torch.quantile(counts.double(), torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                                     device=counts.device)).tolist()
+    print(f"  instances per tile: max {int(counts.max())}, p50 {q[0]:.1f}, p99 {q[1]:.1f}, "
+          f"mean {float(counts.double().mean()):.2f}; {int((counts == 0).sum())} of "
+          f"{counts.numel()} tiles empty")
+    nb = packed[..., bl.O_NB].long()
+    done = nb < int(bl.NB_BIG)
+    visited = torch.where(done, nb - starts[:, None] + 1, counts[:, None])
+    k2_steps = int(warp_view(visited, "rows").amax(dim=-1).sum())
+    need = torch.where(done.all(dim=1), nb.max(dim=1).values, ends) - starts
+    rounds = (need.clamp(min=0) + K5_BATCH_PR3 - 1) // K5_BATCH_PR3
+    steps = {"K2": {"PR 3": k2_steps, "now": k2_steps},
+             "K5": {"PR 3": 8 * int(torch.minimum(counts, rounds * K5_BATCH_PR3).sum()),
+                    "now": int((torch.minimum(warp_view(nb, "quarters").amax(dim=-1),
+                                              ends[:, None])
+                                - starts[:, None]).clamp(min=0).sum())}}
+    kernels = ("K2", "K5") if contrib_warps is not None else ("K2",)
+    for name in kernels:
+        for design, (layout_name, rd, st, sh) in BLEND_DESIGNS[name].items():
+            n_steps = steps[name][design]
+            cw = contrib_warps[layout_name] if name == "K5" else 0
+            held = (f", {cw} ({100 * cw / n_steps:.2f}%) with a contributing pixel"
+                    if name == "K5" else "")
+            print(f"  {name} {design} ({layout_name}): {n_steps} warp-steps{held}; per "
+                  f"warp-step {rd} shared reads, {st} stores, {sh} shuffles on a "
+                  f"contributing step; in all {rd * n_steps} reads, {st * n_steps} stores, "
+                  f"{sh * cw} shuffles")
+    return {"warp_steps": steps, "k5_contributing_warp_steps": contrib_warps}
 
 
 def profile_call(fn, kernels, top=12):
@@ -620,6 +709,33 @@ def _field_grads(setup, view, kernels):
     return d_fields, proj, fields.detach(), capacity, bool(overflow)
 
 
+def backward_inputs(setup, proj, fields, capacity, view=0):
+    """The blend backward's inputs on a training step of ``view``: the
+    layout, K2's packed output, and the loss's gradient with respect to the
+    untiled image (K4 retiles it into K5's cotangent)."""
+    import torch
+
+    from gaussian_splatting_torch.ops import blend as bl
+    from gaussian_splatting_torch.ops import instances as inst
+    from gaussian_splatting_torch.ops import untile as ut
+    from gaussian_splatting_torch.ops.losses import photometric_loss
+    from gaussian_splatting_torch.ops.preprocess import clip
+
+    gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
+    batch = setup["batches"][view]
+    with torch.no_grad():
+        layout = inst.build_instances(proj, grid_x=gx, grid_y=gy, capacity=capacity,
+                                      grad_layout=True)
+        args = (layout.sorted_owner, layout.tile_starts, layout.tile_ends, fields)
+        packed = bl.blend_forward(*args, grid_x=gx)
+        ukw = dict(grid_x=gx, grid_y=gy, tile_w=16, tile_h=16)
+        img = ut.untile(packed, **ukw, width=WIDTH, height=HEIGHT, cols=bl.CT_COLS)
+    img.requires_grad_(True)
+    image = clip(img[:3] + img[3][None] * batch.bg_color[:, None, None], 0.0, 1.0)
+    (d_img,) = torch.autograd.grad(photometric_loss(image, batch.gt_image, 0.2), img)
+    return layout, args, packed, d_img, ukw
+
+
 def train_parity(setup):
     """Each training kernel against its twin on the first step's own inputs
     (view 0 at full width), the whole field gradient against the all-twin
@@ -627,11 +743,8 @@ def train_parity(setup):
     import torch
 
     from gaussian_splatting_torch.ops import blend as bl
-    from gaussian_splatting_torch.ops import instances as inst
     from gaussian_splatting_torch.ops import segreduce as sr
     from gaussian_splatting_torch.ops import untile as ut
-    from gaussian_splatting_torch.ops.losses import photometric_loss
-    from gaussian_splatting_torch.ops.preprocess import clip
     from gaussian_splatting_torch.ops.rasterize import expansion_order
 
     phase("train parity at full width")
@@ -646,19 +759,9 @@ def train_parity(setup):
     if not err_fields <= TOL_GRAD:
         raise RuntimeError("kernel gradients disagree with the all-twin path")
 
-    gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
-    num_tiles = gx * gy
-    batch = setup["batches"][0]
-    with torch.no_grad():
-        layout = inst.build_instances(proj, grid_x=gx, grid_y=gy, capacity=capacity,
-                                      grad_layout=True)
-        args = (layout.sorted_owner, layout.tile_starts, layout.tile_ends, fields)
-        packed = bl.blend_forward(*args, grid_x=gx)
-        ukw = dict(grid_x=gx, grid_y=gy, tile_w=16, tile_h=16)
-        img = ut.untile(packed, **ukw, width=WIDTH, height=HEIGHT, cols=bl.CT_COLS)
-    img.requires_grad_(True)
-    image = clip(img[:3] + img[3][None] * batch.bg_color[:, None, None], 0.0, 1.0)
-    (d_img,) = torch.autograd.grad(photometric_loss(image, batch.gt_image, 0.2), img)
+    layout, args, packed, d_img, ukw = backward_inputs(setup, proj, fields, capacity)
+    gx = ukw["grid_x"]
+    num_tiles = gx * ukw["grid_y"]
     with torch.no_grad():
         # K4
         ct = ut.retile(d_img, **ukw)
@@ -709,11 +812,12 @@ def train_parity(setup):
         need = torch.where(done.all(dim=1), nb.max(dim=1).values, ends[:, 0])
         n_read = int((need - starts[:, 0]).clamp(min=0).sum())
         n_rows = int(offsets[-1] - offsets[0])
-        contrib = contributing_pairs(layout, fields, packed, gx)
+        contrib, contrib_warps = contributing_pairs(layout, fields, packed, gx)
         bwd_ops = BLEND_BWD_VISIT_OPS * pairs + BLEND_BWD_CONTRIB_OPS * contrib
         print(f"blend_backward pairs replayed {pairs}, of which contributing {contrib} "
               f"({100 * contrib / pairs:.2f}%); {bwd_ops} float operations; instances "
               f"read {n_read}; segment rows {n_rows}")
+        blend_work(layout, packed, contrib_warps)
     check_small_grads_vs_oracle(setup["device"])
     return dict(d_img=d_img, ukw=ukw, args=args, packed=packed, ct=ct, gx=gx,
                 num_tiles=num_tiles, n_valid=n, d_exp=d_exp, offsets=offsets, bwd_ops=bwd_ops,

@@ -64,6 +64,7 @@ def blend_forward(
         raise ValueError("blend_forward: indices must be int32")
     if fields.dtype != torch.float32 or fields.shape[1:] != (NUM_FIELDS,):
         raise ValueError("blend_forward: fields must be (P, 10) float32")
+    _check_rows_aligned("blend_forward", fields)
     num_tiles = tile_starts.shape[0]
     out = torch.empty(
         (num_tiles, tile_w * tile_h, OUT_COLS), dtype=torch.float32,
@@ -77,6 +78,13 @@ def blend_forward(
         _kernels.current_stream(fields.device),
     )
     return out
+
+
+def _check_rows_aligned(name: str, fields: torch.Tensor) -> None:
+    """The kernels stage each 40-byte field row with 8-byte ``cp.async``
+    copies, so the table must start on an 8-byte boundary."""
+    if fields.data_ptr() % 8:
+        raise ValueError(f"{name}: fields must start on an 8-byte boundary")
 
 
 def blend_forward_plain(
@@ -183,6 +191,7 @@ def blend_backward(
         packed.shape != (num_tiles, pix, OUT_COLS) or ct.shape != (num_tiles, pix, CT_COLS)
     ) or packed.dtype != torch.float32 or ct.dtype != torch.float32:
         raise ValueError("blend_backward: fields, packed or cotangent has the wrong shape")
+    _check_rows_aligned("blend_backward", fields)
     out = torch.empty((sorted_owner.shape[0], NUM_FIELDS), dtype=torch.float32,
                       device=fields.device)
     launch_blend_backward(sorted_owner, tile_starts, tile_ends, fields, packed, ct,
@@ -206,10 +215,18 @@ def launch_blend_backward(sorted_owner, tile_starts, tile_ends, fields, packed, 
 
 
 def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last (pixel) axis of (..., 256) in the kernel's order:
-    a shuffle-down tree within each 32-pixel warp, then the 8 warp sums
-    added in warp order."""
-    x = x.reshape(*x.shape[:-1], -1, WARP)
+    """Sum over the last (pixel) axis of (..., 256), pixel ``16 row + col``,
+    in K5's order.  Warp w covers the 8x8 quarter (w % 2, w // 2) of the
+    tile, and its lane l the column l % 8 of rows 2 (l // 8) and 2 (l // 8)
+    + 1: each lane first adds its two pixels, top then bottom; a binary tree
+    over the warp then adds lanes l and l + 16, then l + 8, ... l + 1 (the
+    kernel's xor reduce-scatter forms the same sums,
+    ``tests/test_torch_blend_order.py``); last, the 4 warp sums are added in
+    warp order."""
+    lead = x.shape[:-1]
+    x = x.reshape(*lead, 2, 4, 2, 2, 8)  # row = 8 wy + 2 r + h, col = 8 wx + c
+    x = x.select(-3, 0) + x.select(-3, 1)  # (..., wy, r, wx, c)
+    x = x.transpose(-3, -2).reshape(*lead, 4, WARP)  # warp 2 wy + wx, lane 8 r + c
     half = WARP // 2
     while half:
         x = x[..., :half] + x[..., half : 2 * half]

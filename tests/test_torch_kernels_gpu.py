@@ -8,6 +8,7 @@ They skip without a card.  On a machine with one (which need not have JAX;
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -219,3 +220,157 @@ def test_segscan_kernel_matches_plain(cuda):
     ref = ss.segmented_cumsum_plain(vals, flags)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     assert bool((out[:, 5000:7000].view(torch.int32) == 0).all())
+
+
+# Edge cases of K2's and K5's staging: batches of 256 (K2) and 128 (K5)
+# instances, double-buffered, with the owner index loaded a batch ahead, and
+# K5's warps of 64 pixels (8x8 quarters, two pixels per thread) that skip
+# the instances past their pixels' largest NB.
+# Each case is a row of 16x16 tiles with hand-placed Gaussians; both kernels
+# are held against their twins, K5 into a NaN-poisoned buffer with a tail
+# past n_valid.
+
+
+def _wide(rng, tile_x, n, opacity):
+    """n Gaussians that cover tile ``tile_x`` (tiny conics), with seeded
+    centres, opacities drawn from ``opacity`` = (lo, hi) and colours."""
+    f = np.zeros((n, bl.NUM_FIELDS), np.float32)
+    f[:, bl.F_X] = 16 * tile_x + rng.uniform(2, 14, n)
+    f[:, bl.F_Y] = rng.uniform(2, 14, n)
+    f[:, bl.F_CA] = rng.uniform(1e-3, 2e-2, n)
+    f[:, bl.F_CB] = rng.uniform(-1e-3, 1e-3, n)
+    f[:, bl.F_CC] = rng.uniform(1e-3, 2e-2, n)
+    f[:, bl.F_OP] = rng.uniform(*opacity, n)
+    f[:, bl.F_R : bl.F_INVD + 1] = rng.uniform(0, 1, (n, 4))
+    return f
+
+
+def _capped(tile_x, n):
+    """n Gaussians whose alpha caps at 0.99 on every pixel of the tile."""
+    f = np.zeros((n, bl.NUM_FIELDS), np.float32)
+    f[:, bl.F_X] = 16 * tile_x + 8
+    f[:, bl.F_Y] = 8
+    f[:, bl.F_CA] = f[:, bl.F_CC] = 1e-5
+    f[:, bl.F_OP] = 1.0
+    f[:, bl.F_R : bl.F_INVD + 1] = 0.5
+    return f
+
+
+def _spots(rng, tile_x, n):
+    """n Gaussians, each eligible on one pixel only (conic 50 around an
+    integer pixel centre): every warp-step has at most one contributing
+    lane."""
+    f = np.zeros((n, bl.NUM_FIELDS), np.float32)
+    f[:, bl.F_X] = 16 * tile_x + rng.integers(0, 16, n)
+    f[:, bl.F_Y] = rng.integers(0, 16, n)
+    f[:, bl.F_CA] = f[:, bl.F_CC] = 50.0
+    f[:, bl.F_OP] = rng.uniform(0.05, 0.6, n)
+    f[:, bl.F_R : bl.F_INVD + 1] = rng.uniform(0, 1, (n, 4))
+    return f
+
+
+def _edge_case(name):
+    """Per-tile field blocks of one row of tiles, in stream order."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "tile_longer_than_two_batches":
+        return [_wide(rng, 0, 700, (0.004, 0.01)), _wide(rng, 1, 530, (0.004, 0.05))]
+    if name == "nb_on_batch_edges":
+        # capped pairs at p - 1, p put NB at p: on the first and the last
+        # instance of K2's and K5's batches, and elsewhere
+        tiles = []
+        for x, p in enumerate((1, 63, 64, 127, 128, 255, 256, 511, 512)):
+            f = _wide(rng, x, 600, (0.004, 0.01))
+            f[p - 1 : p + 1] = _capped(x, 2)
+            tiles.append(f)
+        return tiles
+    if name == "nb_differs_by_quarter":
+        # eight opaque Gaussians of radius ~2 px at positions p - 7 .. p
+        # saturate a few pixels at the centre of one 8x8 quarter: two
+        # quarters at different positions, so K5's warps skip from
+        # different instances, and the other two never saturate
+        f = _wide(rng, 0, 300, (0.004, 0.01))
+        for (cx, cy), p in (((4, 4), 41), ((12, 12), 201)):
+            spot = _capped(0, 8)
+            spot[:, bl.F_X], spot[:, bl.F_Y] = cx, cy
+            spot[:, bl.F_CA] = spot[:, bl.F_CC] = 0.3
+            f[p - 7 : p + 1] = spot
+        return [f]
+    if name == "empty_next_to_full":
+        return [np.zeros((0, bl.NUM_FIELDS), np.float32), _wide(rng, 1, 300, (0.2, 0.9)),
+                np.zeros((0, bl.NUM_FIELDS), np.float32), _wide(rng, 3, 300, (0.2, 0.9)),
+                np.zeros((0, bl.NUM_FIELDS), np.float32)]
+    if name == "all_alpha_capped":
+        return [_capped(0, 70), _capped(1, 1)]
+    if name == "one_lane_contributes":
+        return [_spots(rng, 0, 300), _spots(rng, 1, 90)]
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", ["tile_longer_than_two_batches", "nb_on_batch_edges",
+                                  "nb_differs_by_quarter", "empty_next_to_full",
+                                  "all_alpha_capped", "one_lane_contributes"])
+def test_blend_kernels_staging_edge_cases(cuda, name):
+    blocks = _edge_case(name)
+    counts = [len(b) for b in blocks]
+    n = sum(counts)
+    fields = torch.from_numpy(np.concatenate(blocks)).to(cuda)
+    ends = torch.tensor(np.cumsum(counts), dtype=torch.int32, device=cuda)
+    starts = ends - torch.tensor(counts, dtype=torch.int32, device=cuda)
+    # owners in a shuffled table; a tail of 37 slots past n_valid
+    perm = torch.from_numpy(np.random.default_rng(n).permutation(n)).to(cuda)
+    table = torch.empty_like(fields)
+    table[perm] = fields
+    owner = torch.cat([perm, torch.zeros(37, dtype=perm.dtype, device=cuda)]).to(torch.int32)
+    gx = len(blocks)
+    args = (owner, starts, ends, table)
+
+    packed = bl.blend_forward(*args, grid_x=gx)
+    ref = bl.blend_forward_plain(*args, grid_x=gx)
+    torch.testing.assert_close(packed[..., :5], ref[..., :5], atol=1e-5, rtol=0)
+    assert torch.equal(packed[..., bl.O_NB], ref[..., bl.O_NB])
+    nb = packed[..., bl.O_NB]
+    if name == "nb_on_batch_edges":
+        expect = torch.tensor([1, 63, 64, 127, 128, 255, 256, 511, 512], device=cuda) + starts
+        assert torch.equal(nb, expect.float()[:, None].expand(-1, 256))
+    if name == "empty_next_to_full":
+        assert bool((packed[0::2, :, bl.O_T] == 1.0).all())
+        assert bool((nb[1::2] < bl.NB_BIG).all())
+    if name == "tile_longer_than_two_batches":
+        assert bool((nb[0] == bl.NB_BIG).all())
+    if name == "nb_differs_by_quarter":
+        quarter = nb[0].view(2, 8, 2, 8).transpose(1, 2)  # (row half, column half, 8, 8)
+        for (qy, qx), p in (((0, 0), 41), ((1, 1), 201)):
+            done = quarter[qy, qx][quarter[qy, qx] < bl.NB_BIG]
+            assert done.numel() > 0 and bool(((done >= p - 7) & (done <= p)).all())
+        assert bool((quarter[0, 1] == bl.NB_BIG).all() and (quarter[1, 0] == bl.NB_BIG).all())
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    ct = torch.randn((gx, 256, bl.CT_COLS), generator=g, device=cuda)
+    out = torch.full((owner.shape[0], bl.NUM_FIELDS), float("nan"), device=cuda)
+    bl.launch_blend_backward(*args, packed, ct, gx, out)
+    torch.cuda.synchronize()
+    assert not bool(out[:n].isnan().any()) and bool(out[n:].isnan().all())
+    grad = bl.blend_backward_plain(*args, packed, ct, grid_x=gx)[:n]
+    scale = grad.abs().amax(dim=0) + 1e-30
+    assert float(((out[:n] - grad).abs() / scale).max()) <= 1e-6
+    if name == "all_alpha_capped":
+        # zero gradient on the capped branch: positions, conics, opacity
+        assert bool((out[:n, : bl.F_OP + 1] == 0).all())
+        assert bool((out[starts.long(), bl.F_R] != 0).all())
+    if name == "one_lane_contributes":
+        assert bool((out[:n, bl.F_OP] != 0).any())
+
+
+def test_blend_kernels_raise_on_unaligned_fields(cuda):
+    """The kernels copy 8-byte halves of each field row: a table that starts
+    4 bytes off an 8-byte boundary is refused."""
+    fields = torch.zeros(4 * bl.NUM_FIELDS + 1, device=cuda)[1:].view(4, bl.NUM_FIELDS)
+    owner = torch.arange(4, dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0], dtype=torch.int32, device=cuda)
+    ends = torch.tensor([4], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bl.blend_forward(owner, starts, ends, fields, grid_x=1)
+    packed = torch.zeros((1, 256, bl.OUT_COLS), device=cuda)
+    ct = torch.zeros((1, 256, bl.CT_COLS), device=cuda)
+    with pytest.raises(ValueError):
+        bl.blend_backward(owner, starts, ends, fields, packed, ct, grid_x=1)
