@@ -16,18 +16,22 @@ Phases (any failure raises, and the script exits non-zero):
               test views on the card, once each; K1-K3 must have launched
   5. render parity  K1-K3 against their plain PyTorch twins on the render
               path's inputs, the whole render against the all-plain path, and
-              a small render against the dense oracle; the blend's pairs,
-              instances per tile and K2's warp-steps (``blend_work``)
+              a small render against the dense oracle; K1's global loads and
+              sectors per warp-load before its block design and now
+              (``expand_work``), K3's bytes moved before its record-order
+              design and now, and its sector floor (``untile_work``); the
+              blend's pairs, instances per tile and K2's warp-steps
+              (``blend_work``)
   6. render timing  CUDA-event times of K1-K3, their twins and the library
               yardsticks, beside the bounds computed from this run's inputs
   7. render profile one view under torch.profiler
   8. train parity   on the first training step's own inputs (the fixture
-              model with seeded noise, view 0, full width): K4 bitwise, K5
-              and K6 within their tolerances against their twins, the whole
-              field gradient against the all-twin path, and a small scene's
-              gradients against the dense oracle's autograd; K2's and K5's
-              warp-steps, shared-memory instructions and shuffles, before this
-              design of the blend kernels and now
+              model with seeded noise, view 0, full width): K3 and K4
+              bitwise, K5 and K6 within their tolerances against their twins,
+              the whole field gradient against the all-twin path, and a small
+              scene's gradients against the dense oracle's autograd; K2's and
+              K5's warp-steps, shared-memory instructions and shuffles, before
+              their current design and now
   9. train path     ``train.step.train_step`` 13 times over the 3 views (the
               last one profiled), then ``densify_step`` and
               ``opacity_reset_step``, against the fixture model's own renders;
@@ -42,8 +46,10 @@ Phases (any failure raises, and the script exits non-zero):
               300 iterations from create_from_pcd (densify at 100, 200, 300,
               opacity reset at 200, eval, snapshots, a checkpoint at 300), a
               resume to 310, the render CLI on the result; K1-K6 launch, the
-              JAX trainer's files exist, the resume starts at 301, and the
-              test-view PSNR beats the initial model's by 1 dB; prints the
+              JAX trainer's files exist, the resume starts at 301, the
+              test-view PSNR beats the initial model's by 1 dB, and K1 is
+              bitwise equal to its twin on both models' test-view tables;
+              prints the
               steady and boundary wall times and the loop's slack reports
  14. segscan        K7 on phase 8's expansion-order gradient rows (10 x ~1.76M,
               flagged at each Gaussian segment's first slot): one launch as
@@ -328,6 +334,7 @@ def parity(model_dir, device="cuda"):
             raise RuntimeError("parity capacity overflowed")
         print(f"expand: bitwise equal over {cap_int} slots; demand {int(total)}, "
               f"valid instances {int(layout.n_valid)}")
+        expand_work(table, ekw)
 
         # K2
         fields = blend_fields(proj)
@@ -352,6 +359,7 @@ def parity(model_dir, device="cuda"):
         if not bool(torch.isfinite(img).all()):
             raise RuntimeError("non-finite render")
         print("untile: bitwise equal")
+        untile_work(packed, ukw)
 
         # whole render: kernel path vs all-plain path, and a small render vs
         # the dense oracle
@@ -521,7 +529,9 @@ def profile_call(fn, kernels, top=12):
         own = [e for e in events if f"::{name}_kernel(" in e.key]
         if not own:
             raise RuntimeError(f"profile shows no {name} kernel on the device")
-        total_ms = sum(e.self_device_time_total for e in own) / 1e3
+        # K1 runs a partition grid before each expand grid: its time counts too
+        extra = [e for e in events if f"::{name}_partition_kernel(" in e.key]
+        total_ms = sum(e.self_device_time_total for e in own + extra) / 1e3
         count = sum(e.count for e in own)
         own_ms[name] = total_ms / count
         print(f"  {name} kernel: {total_ms:.4f} ms device time, x{count}")
@@ -614,6 +624,196 @@ def expand_bytes(table, cap_int):
     span_reads = n_span * (4 + 4 + 4 * ex.MAX_SPAN_ROWS) + 4 * occupied_rows
     rect_reads = n_rect * 4 * 4
     return per_gaussian + span_reads + rect_reads + cap_int * (8 + 4)
+
+
+SECTOR = 32  # bytes the memory system moves per request
+
+
+def _warp_loads(group, addr, active):
+    """One load instruction per warp: ``group`` names each lane's
+    (warp, instruction), ``addr`` its byte address, ``active`` whether it
+    loads.  Returns (instructions issued, distinct 32-byte sectors touched)."""
+    import torch
+
+    g, a = group[active].long(), addr[active].long()
+    if g.numel() == 0:
+        return 0, 0
+    return int(torch.unique(g).numel()), int(torch.unique(g * (1 << 40) + a // SECTOR).numel())
+
+
+# csrc/expand.cu's NT (threads per block), VT (merged items per thread) and
+# STAGED_ROWS (span rows staged per Gaussian)
+EXPAND_NT, EXPAND_VT, EXPAND_STAGED_ROWS = 256, 2, 4
+
+
+def _merge_path_loads(off, M, N, d):
+    """csrc/expand.cu's ``merge_path`` for each diagonal of ``d`` (one warp,
+    32 probes per step): the splits, and (warp-loads, sectors)."""
+    import torch
+
+    lo = (d - N).clamp(min=0)
+    hi = d.clamp(max=M)
+    lane = torch.arange(32, device=d.device)
+    row = torch.arange(d.numel(), device=d.device)[:, None] * 64
+    loads = [0, 0]
+    step = 0
+    while bool((lo < hi).any()):
+        act = lo < hi
+        s = (hi - lo + 31) >> 5
+        j = lo[:, None] + (lane + 1) * s[:, None] - 1
+        inr = act[:, None] & (j < hi[:, None])
+        i, sec = _warp_loads((row + step).expand_as(j), j * 4, inr)
+        loads[0] += i
+        loads[1] += sec
+        p = ~inr | (off[j.clamp(0, M - 1)] > (d[:, None] - 1 - j))
+        anyp = p.any(dim=1)
+        f = p.long().argmax(dim=1)
+        lo, hi = (torch.where(act & anyp, lo + f * s, torch.where(act, hi, lo)),
+                  torch.where(act & anyp, torch.minimum(lo + (f + 1) * s - 1, hi), hi))
+        step += 1
+    return lo, loads
+
+
+def expand_work(table, ekw):
+    """K1's global loads on this table, per warp-load instruction: the
+    distinct sectors its lanes touch, for the per-slot search this design
+    replaced (csrc/expand.cu before it: a binary search over the offsets
+    per slot, then the owner's fields and its whole 16-entry span_cum row
+    and one span_x0 entry) and for the block design now (a 32-probe
+    merge-path search per block end, each block's window of fields staged
+    with coalesced loads, and span rows past the staged ones read per
+    slot)."""
+    import torch
+
+    from gaussian_splatting_torch.ops import expand as ex
+
+    dev = table.offsets.device
+    P = table.depth_key.numel()
+    cap = ekw["capacity"]
+    rows = ex.MAX_SPAN_ROWS
+    off = table.offsets.long()
+    live = (table.depth_key < ex.BIG)
+    span = live & (table.span_flag != 0)
+    loads = {}
+
+    # before: one thread per slot, warps of 32 consecutive slots
+    slot = torch.arange(cap, device=dev)
+    warp = slot // 32
+    lo = torch.zeros_like(slot)
+    hi = torch.full_like(slot, P)
+    n_steps = 0
+    search = [0, 0]
+    while bool((lo < hi).any()):
+        act = lo < hi
+        mid = (lo + hi + 1) >> 1
+        i, sec = _warp_loads(warp * 64 + n_steps, mid * 4, act)
+        search[0] += i
+        search[1] += sec
+        le = off[mid.clamp(max=P)] <= slot
+        lo = torch.where(act & le, mid, lo)
+        hi = torch.where(act & ~le, mid - 1, hi)
+        n_steps += 1
+    g = lo
+    gc = g.clamp(max=max(P - 1, 0))
+    inside = g < P
+    valid = inside & live[gc] if P else inside
+    sp = valid & span[gc] if P else valid
+    rc = valid & ~sp
+    local = slot - off[g]
+    cum = table.span_cum[gc].long() if P else torch.zeros((cap, rows), device=dev)
+    r = (cum <= local[:, None]).sum(dim=1)
+    per = [("depth_key", gc * 4, inside), ("offsets", g * 4, valid), ("span_flag", gc * 4, valid),
+           ("rect_y0", gc * 4, valid), ("rect_w", gc * 4, rc), ("rect_x0", gc * 4, rc)]
+    per += [(f"span_cum[{j}]", (gc * rows + j) * 4, sp) for j in range(rows)]
+    per += [("span_x0[r]", (gc * rows + r.clamp(max=rows - 1)) * 4, sp & (r < rows))]
+    fields = [0, 0]
+    for k, (_, a, act) in enumerate(per):
+        i, sec = _warp_loads(warp * 64 + k, a, act)
+        fields[0] += i
+        fields[1] += sec
+    loads["before"] = {"search": search, "fields and span scan": fields}
+
+    # now: the merge path of csrc/expand.cu, blocks of NV merged items
+    NT, NV, STAGED = EXPAND_NT, EXPAND_NT * EXPAND_VT, EXPAND_STAGED_ROWS
+    M = P + 1
+    n_blocks = -(-(cap + M) // NV)
+    d = (torch.arange(n_blocks + 1, device=dev) * NV).clamp(max=cap + M)
+    split, mp = _merge_path_loads(off, M, cap, d)  # the partition launch, a warp per end
+    # every warp of a block loads the block's two ends
+    mp = [mp[0] + 2 * n_blocks * (NT // 32), mp[1] + 2 * n_blocks * (NT // 32)]
+    nw = split[1:] - split[:-1] + 1  # window Gaussians j0 - 1 .. j1 - 1 of each block
+    blk = torch.repeat_interleave(torch.arange(n_blocks, device=dev), nw)
+    w = torch.arange(int(nw.sum()), device=dev) - torch.repeat_interleave(
+        torch.cumsum(nw, 0) - nw, nw)
+    gw = torch.repeat_interleave(split[:-1] - 1, nw) + w
+    gwc = gw.clamp(0, max(P - 1, 0))
+    grp = (blk * (NV // 32 + 1) + w // 32) * 16
+    ins = (gw >= 0) & (gw < P)
+    spw = ins & span[gwc] if P else ins
+    stage = [(gw.clamp(min=0) * 4, gw >= 0)] + [(gwc * 4, ins)] * 5 + [(gwc * 64, spw)] * 2
+    staged = [0, 0]
+    for k, (a, act) in enumerate(stage):
+        i, sec = _warp_loads(grp + k, a, act)
+        staged[0] += i
+        staged[1] += sec
+    # span rows past the staged ones, per slot (threads take slots i0 + t + k NT)
+    past = sp & (r >= STAGED)
+    d_slot = slot + torch.searchsorted(off, slot, right=True)  # merged position of each slot
+    sblk = d_slot // NV
+    i0 = d[:-1] - split[:-1]
+    t = slot - i0[sblk]
+    pgrp = (sblk * EXPAND_VT + t // NT) * (NT // 32) + (t % NT) // 32
+    tail = [0, 0]
+    for j in range(STAGED, rows):
+        i, sec = _warp_loads(pgrp * 64 + j, (gc * rows + j) * 4, past & (r >= j))
+        tail[0] += i
+        tail[1] += sec
+    for name, a, act in (("base", (gc * rows + (r - 1).clamp(min=0)) * 4, past & (r > STAGED)),
+                         ("x0", (gc * rows + r.clamp(max=rows - 1)) * 4, past & (r < rows))):
+        i, sec = _warp_loads(pgrp * 64 + 32 + (name == "x0"), a, act)
+        tail[0] += i
+        tail[1] += sec
+    loads["now"] = {"merge path": mp, "staging": staged, "span rows past 4": tail}
+    for design, parts in loads.items():
+        n_i = sum(v[0] for v in parts.values())
+        n_s = sum(v[1] for v in parts.values())
+        detail = "; ".join(f"{k} {v[0]} loads, {v[1]} sectors" for k, v in parts.items())
+        print(f"  expand {design}: {n_i} warp-loads touching {n_s} sectors "
+              f"({n_s / max(n_i, 1):.2f} per load, {n_s * SECTOR} bytes at most); {detail}")
+    print(f"  expand: {int(sp.sum())} span slots, {int(past.sum())} of them past the "
+          f"{STAGED} staged rows; {n_blocks} blocks, window sizes max {int(nw.max())}")
+    return loads
+
+
+def untile_work(packed, ukw):
+    """K3's bytes on these inputs: written, the planes once; read, the
+    sectors of the cropped pixels' records that hold their wanted columns,
+    once per plane under the mapping this design replaced (one thread per
+    output value, plane by plane; the packed block outgrows the L2, so no
+    pass finds the last one's sectors) and once in all now (one thread per
+    record).  The sector floor is the second read plus the writes at the
+    card's peak rate; the table's bound counts only the wanted bytes."""
+    import torch
+
+    dev = packed.device
+    cols, w, h = ukw["cols"], ukw["width"], ukw["height"]
+    gx, tw, th = ukw["grid_x"], ukw["tile_w"], ukw["tile_h"]
+    row = packed.stride(1)
+    y = torch.arange(h, device=dev)[:, None]
+    x = torch.arange(w, device=dev)[None, :]
+    rec = (((y // th) * gx + x // tw) * (tw * th) + (y % th) * tw + x % tw).reshape(-1)
+    sec = torch.stack([(rec * row + c) * 4 // SECTOR for c in range(cols)])
+    old_read = sum(int(torch.unique(sec[c]).numel()) for c in range(cols)) * SECTOR
+    new_read = int(torch.unique(sec).numel()) * SECTOR
+    written = cols * w * h * 4
+    floor_ms = (new_read + written) / PEAK_BYTES_PER_S * 1e3
+    useful = 2 * written
+    print(f"  untile: writes {written} B; reads {old_read} B before (one plane per pass), "
+          f"{new_read} B now (each record once): {old_read + written} -> "
+          f"{new_read + written} B moved; sector floor {floor_ms:.4f} ms; the bound counts "
+          f"{useful} B, {useful / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+    return {"old_bytes": old_read + written, "new_bytes": new_read + written,
+            "floor_ms": floor_ms}
 
 
 def check_small_vs_oracle(cuda):
@@ -769,6 +969,14 @@ def train_parity(setup):
         if not torch.equal(ct, ut.retile_plain(d_img, **ukw)):
             raise RuntimeError("retile kernel disagrees with its plain version")
         print(f"retile: bitwise equal over {ct.numel()} values")
+
+        # K3 on the step's own blend output
+        ikw = dict(ukw, width=WIDTH, height=HEIGHT, cols=bl.CT_COLS)
+        img = ut.untile(packed, **ikw)
+        torch.cuda.synchronize()
+        if not torch.equal(img, ut.untile_plain(packed, **ikw)):
+            raise RuntimeError("untile kernel disagrees with its plain version")
+        print(f"untile: bitwise equal over {img.numel()} values")
 
         # K5, into a NaN-poisoned buffer: every valid slot must be written
         n = int(layout.n_valid)
@@ -1339,15 +1547,38 @@ def psnr_gain(scene_dir, out, device="cuda"):
             for cam in snap.get_test_cameras():
                 img, _, _ = render_camera(model, cam, raster, bg)
                 vals.append(float(psnr(img, torch.from_numpy(cam.image).to(device))))
+                check_expand(model, cam.cam, raster)
         return sum(vals) / len(vals), vals
 
     before, b_views = mean_psnr(init)
     after, a_views = mean_psnr(snap.gaussians)
+    print("expand: bitwise equal to its twin on the tables of both models' test views")
     print(f"test-view PSNR: initial model {before:.4f} dB {b_views}, iteration "
           f"{CLI_ITERATIONS} snapshot {after:.4f} dB {a_views}: gain {after - before:.4f} dB "
           f"(required {CLI_PSNR_GAIN_DB})")
     if not after - before >= CLI_PSNR_GAIN_DB:
         raise RuntimeError("training did not raise the test-view PSNR by 1 dB")
+
+
+def check_expand(model, cam, raster):
+    """K1 against its twin on one view's expansion table, at the capacity
+    the render sizes for it."""
+    import torch
+
+    from gaussian_splatting_torch.ops import expand as ex
+    from gaussian_splatting_torch.ops import instances as inst
+    from gaussian_splatting_torch.ops.preprocess import preprocess
+
+    with torch.no_grad():
+        table, _ = inst.build_table(preprocess(*model.activated_params(), cam,
+                                               sh_degree=model.max_sh_degree))
+    cap = inst.internal_capacity(inst.required_capacity(model.capacity, raster.instance_slack))
+    gx, gy = -(-cam.width // 16), -(-cam.height // 16)
+    ekw = dict(capacity=cap, grid_x=gx, num_tiles=gx * gy)
+    keys, owner = ex.expand_instances(table, **ekw)
+    keys_p, owner_p = ex.expand_instances_plain(table, **ekw)
+    if not (torch.equal(keys, keys_p) and torch.equal(owner, owner_p)):
+        raise RuntimeError("expand kernel disagrees with its plain version on a CLI view")
 
 
 def kernel_row(name, replaces, err, ms, plain_ms, n_bytes, n_ops, library_ms):

@@ -17,6 +17,7 @@ no blend fields: the blend gathers them through the sorted owner index.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -47,7 +48,9 @@ def expand_instances(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (keys (capacity,) int64, owner (capacity,) int32).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    The table is ``instances.build_table``'s: offsets non-decreasing from 0
+    and span rows cumulative.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
     if table.depth_key.device.type == "cpu":
         return expand_instances_plain(
             table, capacity=capacity, grid_x=grid_x, num_tiles=num_tiles
@@ -61,17 +64,28 @@ def expand_instances(
             raise ValueError("expand: integer table columns must be int32")
     if table.depth_key.dtype != torch.float32:
         raise ValueError("expand: depth_key must be float32")
+    if table.span_x0.data_ptr() % 16 or table.span_cum.data_ptr() % 16:
+        raise ValueError("expand: span rows must start on a 16-byte boundary")
     dev = table.depth_key.device
+    n_splits = -(-(capacity + P + 1) // _block_items()) + 1
     keys = torch.empty(capacity, dtype=torch.int64, device=dev)
-    owner = torch.empty(capacity, dtype=torch.int32, device=dev)
+    # the owners, then the kernel's scratch: each block's ends
+    owner_splits = torch.empty(capacity + n_splits, dtype=torch.int32, device=dev)
+    owner, splits = owner_splits[:capacity], owner_splits[capacity:]
     vp, ci = ctypes.c_void_p, ctypes.c_int
     _kernels.launch(
-        "expand", "gs_expand", [vp] * 8 + [ci] * 4 + [vp] * 3,
+        "expand", "gs_expand", [vp] * 8 + [ci] * 4 + [vp] * 4,
         *(t.data_ptr() for t in table),
         P, capacity, grid_x, num_tiles,
-        keys.data_ptr(), owner.data_ptr(), _kernels.current_stream(dev),
+        keys.data_ptr(), owner.data_ptr(), splits.data_ptr(), _kernels.current_stream(dev),
     )
     return keys, owner
+
+
+@functools.cache
+def _block_items() -> int:
+    """The kernel's merged items (slots and offsets entries) per block."""
+    return _kernels.library("expand").gs_expand_block_items()
 
 
 def expand_instances_plain(

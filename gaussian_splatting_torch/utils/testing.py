@@ -83,3 +83,103 @@ def random_scene(
         means3d=means, scales=scales, quats=quats, opacities=opac, sh=sh,
         cam=cam, bg=torch.tensor(bg, dtype=torch.float32, device=dev),
     )
+
+
+# Edge cases of K1's block decomposition (csrc/expand.cu: blocks of 512
+# merged slots and offsets entries, 4 span rows staged per Gaussian), as
+# hand-built expansion tables on a 64 x 40 tile grid.
+EXPAND_EDGE_CASES = ("straddles_blocks", "sentinel_run", "zero_counts", "no_gaussians",
+                     "one_gaussian", "demand_equals_capacity", "ragged_capacity",
+                     "spans_past_staged_rows")
+_EDGE_GRID = (64, 40)
+
+
+def expand_edge_table(name: str, device=None):
+    """(ExpandTable, capacity, grid_x, num_tiles) of one edge case of
+    ``EXPAND_EDGE_CASES``, from a seed of its own.  Every Gaussian is a
+    full rect, a span (one contiguous run of tiles in each of its rows,
+    ``span_cum`` the running cell count), a sentinel (one slot, depth
+    ``BIG``) or, in "zero_counts", a Gaussian that owns no slot."""
+    from gaussian_splatting_torch.ops import expand as ex
+
+    gx, gy = _EDGE_GRID
+    rng = np.random.default_rng(sum(map(ord, name)))
+    rows = []  # (count, x0, y0, w, flag, span_x0 row, span_cum row, depth)
+
+    def rect(w, h):
+        x0, y0 = int(rng.integers(0, gx - w + 1)), int(rng.integers(0, gy - h + 1))
+        rows.append((w * h, x0, y0, w, 0, [0] * 16, [0] * 16, float(rng.uniform(0.2, 50))))
+
+    def span(lengths):
+        y0 = int(rng.integers(0, gy - len(lengths) + 1))
+        xs = [int(rng.integers(0, gx - n + 1)) for n in lengths]
+        cum = np.cumsum(lengths).tolist()
+        cum += [cum[-1]] * (16 - len(cum))
+        rows.append((cum[-1], min(xs), y0, max(lengths), 1, xs + [0] * (16 - len(xs)), cum,
+                     float(rng.uniform(0.2, 50))))
+
+    def sentinel():
+        rows.append((1, 0, 0, 1, 0, [0] * 16, [0] * 16, ex.BIG))
+
+    def mixed(n, max_rows=6):
+        for _ in range(n):
+            u = rng.uniform()
+            if u < 0.5:
+                span([int(k) for k in rng.integers(1, 5, int(rng.integers(1, max_rows + 1)))])
+            elif u < 0.85:
+                rect(int(rng.integers(1, 6)), int(rng.integers(1, 5)))
+            else:
+                sentinel()
+
+    slack = 700
+    if name == "straddles_blocks":
+        mixed(40)
+        rect(40, 30)  # 1200 slots: more than one block's 512 items
+        mixed(20)
+        span([60] * 16)  # 960 slots in 16 rows
+        mixed(40)
+    elif name == "sentinel_run":
+        mixed(30)
+        for _ in range(1300):
+            sentinel()
+        mixed(30)
+    elif name == "zero_counts":
+        mixed(60)
+        for i in range(1100):  # a run longer than a block, with 3 live ones inside
+            if i in (17, 600, 1099):
+                mixed(1)
+            else:
+                rows.append((0, 0, 0, 1, 0, [0] * 16, [0] * 16, 1.0))
+        mixed(60)
+        rows.insert(0, (0, 0, 0, 1, 0, [0] * 16, [0] * 16, 2.0))  # g = 0 owns nothing
+        rows.append((0, 0, 0, 1, 0, [0] * 16, [0] * 16, 3.0))  # nor does the last
+    elif name == "no_gaussians":
+        pass
+    elif name == "one_gaussian":
+        span([3, 4])
+        slack = 1000
+    elif name == "demand_equals_capacity":
+        mixed(300)
+        slack = 0
+    elif name == "ragged_capacity":
+        mixed(300)
+        slack = 333
+    elif name == "spans_past_staged_rows":
+        for _ in range(200):
+            span([int(k) for k in rng.integers(1, 4, int(rng.integers(4, 17)))])
+    else:
+        raise ValueError(name)
+
+    dev = resolve_device(device)
+
+    def col(k, dtype):
+        return torch.tensor([r[k] for r in rows], dtype=dtype, device=dev).reshape(
+            (len(rows),) + ((16,) if k in (5, 6) else ()))
+
+    counts = torch.tensor([r[0] for r in rows], dtype=torch.int64)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64), counts.cumsum(0)]).to(torch.int32)
+    table = ex.ExpandTable(
+        offsets=offsets.to(dev), rect_x0=col(1, torch.int32), rect_y0=col(2, torch.int32),
+        rect_w=col(3, torch.int32), span_flag=col(4, torch.int32), span_x0=col(5, torch.int32),
+        span_cum=col(6, torch.int32), depth_key=col(7, torch.float32))
+    return table, int(counts.sum()) + slack, gx, gx * gy

@@ -21,7 +21,11 @@ from gaussian_splatting_torch.ops import segreduce as sr
 from gaussian_splatting_torch.ops import untile as ut
 from gaussian_splatting_torch.ops.preprocess import preprocess
 from gaussian_splatting_torch.ops.rasterize import _render, blend_fields, expansion_order, render
-from gaussian_splatting_torch.utils.testing import random_scene
+from gaussian_splatting_torch.utils.testing import (
+    EXPAND_EDGE_CASES,
+    expand_edge_table,
+    random_scene,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -111,12 +115,70 @@ def test_render_kernels_match_plain_path(cuda, antialiasing):
     assert int(fast.num_instances) == int(plain.num_instances)
 
 
+# K3's edges: images whose sides are not multiples of 16, records wider than
+# the columns taken (the paths' 5 of 8), as wide (5 of 5), one column, one
+# tile.  (width, height, floats per record, columns taken)
+UNTILE_CASES = {
+    "1000x563_row8_cols5": (1000, 563, 8, 5),
+    "1000x563_row5_cols5": (1000, 563, 5, 5),
+    "1000x563_row8_cols1": (1000, 563, 8, 1),
+    "17x9_row8_cols5": (17, 9, 8, 5),
+    "17x9_row5_cols5": (17, 9, 5, 5),
+    "17x9_row8_cols1": (17, 9, 8, 1),
+    "one_tile_16x16": (16, 16, 8, 5),
+    "one_tile_11x7": (11, 7, 5, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNTILE_CASES))
+def test_untile_kernel_edges_match_plain(cuda, case):
+    width, height, row, cols = UNTILE_CASES[case]
+    gx, gy = -(-width // 16), -(-height // 16)
+    g = torch.Generator(device=cuda).manual_seed(width * height + row)
+    packed = torch.randn((gx * gy, 256, row), generator=g, device=cuda)[:, :, : max(cols, 1)]
+    kw = dict(grid_x=gx, grid_y=gy, tile_w=16, tile_h=16, width=width, height=height,
+              cols=cols)
+    before = _kernels.launches["untile"]
+    out = ut.untile(packed, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["untile"] == before + 1
+    assert out.shape == (cols, height, width)
+    assert torch.equal(out, ut.untile_plain(packed, **kw))
+
+
+@pytest.mark.parametrize("name", EXPAND_EDGE_CASES)
+def test_expand_kernel_edges_match_plain(cuda, name):
+    """K1's block decomposition at its edges (the tables of
+    ``utils.testing.expand_edge_table``, emulated on the CPU by
+    tests/test_torch_expand_blocks.py): a Gaussian over several blocks, a
+    run of sentinels longer than a block, zero-count offsets entries, P of 0
+    and 1, demand equal to the capacity, a capacity off the block size, and
+    spans longer than the staged rows."""
+    table, capacity, gx, num_tiles = expand_edge_table(name, device=cuda)
+    kw = dict(capacity=capacity, grid_x=gx, num_tiles=num_tiles)
+    before = _kernels.launches["expand"]
+    keys, owner = ex.expand_instances(table, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["expand"] == before + 1
+    keys_p, owner_p = ex.expand_instances_plain(table, **kw)
+    assert torch.equal(owner, owner_p)
+    assert torch.equal(keys, keys_p)
+
+
 def test_kernels_raise_on_wrong_input(cuda):
     gx, gy = _grid()
     packed = torch.zeros((gx * gy, 256, 8), device=cuda)
     with pytest.raises(ValueError):
         ut.untile(packed[:, :, ::2], grid_x=gx, grid_y=gy, tile_w=16, tile_h=16,
                   width=W, height=H, cols=3)
+    # K1 loads the first 16 bytes of each span row at once
+    table, capacity, egx, num_tiles = expand_edge_table("ragged_capacity", device=cuda)
+    P = table.depth_key.shape[0]
+    shifted = torch.zeros(P * 16 + 1, dtype=torch.int32, device=cuda)[1:].view(P, 16)
+    shifted.copy_(table.span_cum)
+    with pytest.raises(ValueError):
+        ex.expand_instances(table._replace(span_cum=shifted), capacity=capacity, grid_x=egx,
+                            num_tiles=num_tiles)
 
 
 def test_retile_kernel_matches_plain(cuda):
