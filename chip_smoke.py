@@ -36,7 +36,9 @@ Phases (any failure raises, and the script exits non-zero):
               last one profiled), then ``densify_step`` and
               ``opacity_reset_step``, against the fixture model's own renders;
               no overflow, finite losses, each view's loss falls, K1-K6 launch
- 10. train timing   K4-K6 as in phase 6, on phase 8's inputs
+ 10. train timing   K4-K6 as in phase 6, on phase 8's inputs, K4 and K6 also
+              under torch.profiler; K6's warp-steps and sectors per load before
+              its warp design and now (``segreduce_work``)
  11. bench          bench.py's quantity on the port: forward + backward of
               sum(image) + sum(invdepth) at 1080p on bench.py's scene, px/s
  12. train CLI scene  8 train and 2 test 1080p views on orbits of radius 20
@@ -49,9 +51,14 @@ Phases (any failure raises, and the script exits non-zero):
               JAX trainer's files exist, the resume starts at 301, the
               test-view PSNR beats the initial model's by 1 dB, and K1 is
               bitwise equal to its twin on both models' test-view tables;
-              prints the
-              steady and boundary wall times and the loop's slack reports
- 14. segscan        K7 on phase 8's expansion-order gradient rows (10 x ~1.76M,
+              prints the steady and boundary wall times, the loop's slack
+              reports, and K4's and K6's times and K6's work counts on the
+              profiled iteration's own inputs
+ 14. depth maps     2 of the CLI scene's train views with 16-bit depth PNGs
+              (the fixture model's rendered inverse depth x 512), loaded by
+              the port's Scene through the training CLI's ``-d``; 3
+              iterations, each with a finite, nonzero depth term
+ 15. segscan        K7 on phase 8's expansion-order gradient rows (10 x ~1.76M,
               flagged at each Gaussian segment's first slot): one launch as
               its path, then bitwise against its twin and, at each segment's
               last slot, bitwise against K6's sums; timed and profiled
@@ -816,6 +823,101 @@ def untile_work(packed, ukw):
             "floor_ms": floor_ms}
 
 
+# csrc/segment_reduce.cu's WINDOW (rows a warp stages at a time)
+SEGREDUCE_WINDOW = 128
+
+
+def segreduce_work(offsets, n_rows):
+    """K6's work on these offsets, from the offsets alone: the rows, the
+    segments and the longest; the warp-steps (the sum over warps of their
+    longest run of rows, which sets a warp's pace) against the sum of
+    lengths; and the global loads per warp-load instruction and the distinct
+    32-byte sectors they touch, under the mapping this design replaced (one
+    thread per Gaussian summing from global memory: at step k a warp's 10
+    scalar loads take the k-th row of 32 segments) and under the warp design
+    now (a warp per 32 Gaussians: its 33 offsets, then its rows in windows
+    of SEGREDUCE_WINDOW, staged with 16-byte copies)."""
+    import torch
+
+    dev = offsets.device
+    off = offsets.long()
+    P = off.numel() - 1
+    if P <= 0:
+        return {}
+    lo, hi = off[:-1], off[1:]
+    length = hi - lo
+    total = int(length.sum())
+    cols = 10
+    seg = torch.repeat_interleave(torch.arange(P, device=dev), length)
+    k = torch.arange(total, device=dev) - torch.repeat_interleave(
+        torch.cumsum(length, 0) - length, length)
+    row = lo[seg] + k
+    longest = int(length.max())
+    warp = seg // 32
+
+    def warp_steps(key, steps):
+        """Sum over groups (``key`` per item) of the group's largest ``steps``."""
+        best = torch.zeros(int(key.max()) + 1, dtype=torch.long, device=dev)
+        return int(best.scatter_reduce(0, key, steps, "amax").sum())
+
+    # before: warps of 32 consecutive Gaussians, 10 loads a step
+    old_steps = warp_steps(torch.arange(P, device=dev) // 32, length)
+    grp = warp * (longest + 1) + k
+    old = [0, 0]
+    for c in range(cols):
+        i, sec = _warp_loads(grp * cols + c, row * 4 * cols + 4 * c,
+                             torch.ones_like(row, dtype=torch.bool))
+        old[0] += i
+        old[1] += sec
+
+    # now: a warp per 32 Gaussians, its rows [wlo, whi) in windows
+    n_warps = -(-P // 32)
+    wlo = off[torch.arange(n_warps, device=dev) * 32]
+    whi = off[(torch.arange(n_warps, device=dev) * 32 + 32).clamp(max=P)]
+    # a warp's pace: per window, the most rows one lane adds
+    win = (row - wlo[warp]) // SEGREDUCE_WINDOW
+    n_win = (whi - wlo + SEGREDUCE_WINDOW - 1) // SEGREDUCE_WINDOW
+    max_win = int(n_win.max())
+    lane_rows = torch.zeros(n_warps * max_win * 32, dtype=torch.long, device=dev)
+    lane_rows.index_add_(0, (warp * max_win + win) * 32 + seg % 32, torch.ones_like(row))
+    new_steps = int(lane_rows.view(-1, 32).max(dim=1).values.sum())
+    # loads: each lane's offset, the broadcast end, then per window the
+    # 16-byte copies from a 16-byte boundary
+    ow = torch.arange(P, device=dev)
+    offs = _warp_loads(ow // 32, ow * 4, torch.ones_like(ow, dtype=torch.bool))
+    offs = (offs[0] + n_warps, offs[1] + n_warps)
+    wk = torch.repeat_interleave(torch.arange(n_warps, device=dev), n_win)
+    j = torch.arange(int(n_win.sum()), device=dev) - torch.repeat_interleave(
+        torch.cumsum(n_win, 0) - n_win, n_win)
+    c0 = wlo[wk] + j * SEGREDUCE_WINDOW
+    c1 = torch.minimum(c0 + SEGREDUCE_WINDOW, whi[wk])
+    a0 = (c0 * cols) & ~3
+    n4 = (c1 * cols - a0 + 3) // 4
+    cw = torch.repeat_interleave(torch.arange(n4.numel(), device=dev), n4)
+    q = torch.arange(int(n4.sum()), device=dev) - torch.repeat_interleave(
+        torch.cumsum(n4, 0) - n4, n4)
+    per_window = -(-(SEGREDUCE_WINDOW * cols + 5) // 128)  # copy instructions, at most
+    staged = _warp_loads(cw * per_window + q // 32, (a0[cw] + 4 * q) * 4,
+                         torch.ones_like(q, dtype=torch.bool))
+    new = {"offsets": list(offs), "rows": list(staged)}
+    n_i = sum(v[0] for v in new.values())
+    n_s = sum(v[1] for v in new.values())
+    print(f"  segment_reduce: {total} rows in {P} segments (mean {total / P:.3f}), longest "
+          f"{longest}; {int((length == 0).sum())} empty; {n_rows} rows in the array")
+    print(f"  segment_reduce before: {old_steps} warp-steps against {total} rows "
+          f"({32 * old_steps / max(total, 1):.2f} lane-steps per row); {old[0]} warp-loads "
+          f"touching {old[1]} sectors ({old[1] / max(old[0], 1):.2f} per load)")
+    detail = "; ".join(f"{k} {v[0]} loads, {v[1]} sectors" for k, v in new.items())
+    print(f"  segment_reduce now: {n_warps} warps, {int(n_win.sum())} windows (at most "
+          f"{max_win} a warp); {new_steps} warp-steps from shared memory "
+          f"({32 * new_steps / max(total, 1):.2f} lane-steps per row); {n_i} warp-loads "
+          f"touching {n_s} sectors ({n_s / max(n_i, 1):.2f} per load); {detail}")
+    return {"rows": total, "segments": P, "longest": longest,
+            "before": {"warp_steps": old_steps, "loads": old},
+            "now": {"warp_steps": new_steps, "windows": int(n_win.sum()),
+                    "loads": [n_i, n_s]}}
+
+
 def check_small_vs_oracle(cuda):
     import torch
 
@@ -1164,9 +1266,18 @@ def train_timing(tctx):
             cuda_ms(lambda: torch.zeros((P, sr.COLS), device=d_exp.device)
                     .index_add_(0, seg_ids, seg_rows)),
         ))
+        # the profiler's device time per launch (it records none of the first
+        # few launches it traces, so trace 50 and average those it recorded)
+        for r, fn in ((rows[0], lambda: ut.retile(d_img, **ukw)),
+                      (rows[2], lambda: sr.segment_reduce_rows(d_exp, offsets))):
+            print(f"50 {r['name']} launches under the profiler:", end=" ")
+            r["profiler_ms"] = profile_call(lambda: [fn() for _ in range(50)],
+                                            (r["name"],))[r["name"]]
+        segreduce_work(offsets, d_exp.shape[0])
     for r in rows:
-        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-              f"{r['library_ms']}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+        print(f"  {r['name']}: {r['ms']:.4f} ms (profiler {r.get('profiler_ms')}, plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']})")
     return rows
 
 
@@ -1363,17 +1474,29 @@ class LoopProbe:
         self.first_step = None
         self.boundaries = []  # (iteration, name, ms)
         self.profiled = None
+        self.profile_ms = {}  # each kernel's device ms per launch in the profiled step
+        self.inputs = {}  # K4's and K6's arguments in the profiled step
 
     def __enter__(self):
         import torch
 
         from gaussian_splatting_torch import _kernels
+        from gaussian_splatting_torch.ops import segreduce as sr
+        from gaussian_splatting_torch.ops import untile as ut
         from gaussian_splatting_torch.scene import Scene
         from gaussian_splatting_torch.train import loop
 
         self._saved = [(loop, n, getattr(loop, n)) for n in ("train_step",) + self.BOUNDARIES]
         self._saved.append((Scene, "save", Scene.save))
         real_step = loop.train_step
+        wrapped = ((ut, "retile"), (sr, "segment_reduce_rows"))
+        real = {name: getattr(module, name) for module, name in wrapped}
+
+        def keep_inputs(name):
+            def fn(*args, **kw):
+                self.inputs.setdefault(name, (args, kw))
+                return real[name](*args, **kw)
+            return fn
 
         def train_step(state, *args, **kw):
             if self.first_step is None:
@@ -1383,8 +1506,15 @@ class LoopProbe:
                 torch.cuda.synchronize()
                 held = []
                 print(f"profiled steady iteration {self.profile_iteration}:", end=" ")
-                profile_call(lambda: held.append(real_step(state, *args, **kw)),
-                             _kernels.TRAIN_KERNELS)
+                for module, name in wrapped:
+                    setattr(module, name, keep_inputs(name))
+                try:
+                    self.profile_ms = profile_call(
+                        lambda: held.append(real_step(state, *args, **kw)),
+                        _kernels.TRAIN_KERNELS)
+                finally:
+                    for module, name in wrapped:
+                        setattr(module, name, real[name])
                 self.profiled = held[0]
                 return held[0]
             return real_step(state, *args, **kw)
@@ -1491,6 +1621,7 @@ def train_cli_phase(root, scene_dir, seed, device="cuda"):
         print(f"  {ln.strip()}")
     if any("overflow" in ln for ln in reports):
         print("  (overflowed steps were no-ops and were taken again)")
+    cli_kernel_times(probe)
 
     ckpt = os.path.join(out, f"chkpnt{CLI_ITERATIONS}.pth")
     with LoopProbe() as resumed:
@@ -1517,6 +1648,111 @@ def train_cli_phase(root, scene_dir, seed, device="cuda"):
         print(f"  render CLI view {r['index']}: {r['seconds'] * 1e3:.1f} ms wall, slot demand "
               f"{r['num_instances']}, retries {r['retries']}")
     psnr_gain(scene_dir, out, device)
+    return launches
+
+
+def cli_kernel_times(probe):
+    """K4 and K6 on the profiled CLI iteration's own inputs: the profiler's
+    device time per launch in that step, the CUDA-event time of 20 launches,
+    the bound, and K6's work counts (``segreduce_work``)."""
+    import torch
+
+    from gaussian_splatting_torch.ops import segreduce as sr
+    from gaussian_splatting_torch.ops import untile as ut
+
+    (img,), ukw = probe.inputs["retile"]
+    (rows, offsets), _ = probe.inputs["segment_reduce_rows"]
+    P = offsets.shape[0] - 1
+    n_rows = int(offsets[-1] - offsets[0])
+    with torch.no_grad():
+        for name, fn, n_bytes in (
+            ("retile", lambda: ut.retile(img, **ukw),
+             img.numel() * 4 + ukw["grid_x"] * ukw["grid_y"] * 256 * img.shape[0] * 4),
+            ("segment_reduce", lambda: sr.segment_reduce_rows(rows, offsets),
+             n_rows * 4 * sr.COLS + (P + 1) * 4 + P * 4 * sr.COLS),
+        ):
+            print(f"  CLI iteration {probe.profile_iteration} {name}: profiler "
+                  f"{probe.profile_ms.get(name, float('nan')):.4f} ms per launch in the step, "
+                  f"events {cuda_ms(fn):.4f} ms, bound "
+                  f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+        segreduce_work(offsets, rows.shape[0])
+    probe.inputs.clear()
+
+
+def depth_maps_phase(root, cli_scene_dir, model_dir, seed, device="cuda"):
+    """The training CLI with ``-d`` on a Blender scene of 2 of the CLI
+    scene's train views, each with a 16-bit depth PNG: the fixture model's
+    rendered inverse depth x 512 (the Blender scale the reader divides by).
+    The port's Scene loads them on the card; the CLI takes 3 iterations
+    with the depth weight on.  Fails unless each step trained with depth
+    and its depth term is finite and nonzero."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch.config import RasterizeConfig
+    from gaussian_splatting_torch.data.cameras import load_camera
+    from gaussian_splatting_torch.data.dataset import read_blender_scene
+    from gaussian_splatting_torch.models.gaussians import load_model_ply
+    from gaussian_splatting_torch.render import render_camera
+    from gaussian_splatting_torch.train import cli, loop
+    from gaussian_splatting_torch.train.loop import load_raster_state
+
+    phase("depth maps")
+    scene_dir = os.path.join(root, "depth_scene")
+    os.makedirs(os.path.join(scene_dir, "train"))
+    os.makedirs(os.path.join(scene_dir, "depths"))
+    with open(os.path.join(cli_scene_dir, "transforms_train.json")) as f:
+        meta = json.load(f)
+    meta["frames"] = meta["frames"][:2]
+    with open(os.path.join(scene_dir, "transforms_train.json"), "w") as f:
+        json.dump(meta, f)
+    shutil.copy(os.path.join(cli_scene_dir, "points3d.ply"), scene_dir)
+    model = load_model_ply(
+        os.path.join(model_dir, "point_cloud", f"iteration_{ITERATION}", "point_cloud.ply"),
+        max_sh_degree=SH_DEGREE, device=device)
+    raster = load_raster_state(model_dir, RasterizeConfig())
+    bg = torch.zeros(3, device=device)
+    for frame in meta["frames"]:
+        rel = frame["file_path"] + ".png"
+        shutil.copy(os.path.join(cli_scene_dir, rel), os.path.join(scene_dir, rel))
+    for info in read_blender_scene(scene_dir).train_cameras:
+        cam = load_camera(info, resolution=1, device=device)
+        with torch.no_grad():
+            _, out, _ = render_camera(model, cam, raster, bg)
+        invd = out.invdepth.cpu().numpy()
+        png = np.clip(np.rint(invd * 512.0), 0, 65535).astype(np.uint16)
+        Image.fromarray(png).save(
+            os.path.join(scene_dir, "depths", os.path.splitext(info.image_name)[0] + ".png"))
+        print(f"  {info.image_name}: inverse depth {invd.min():.5f}..{invd.max():.5f}, "
+              f"16-bit map {int(png.min())}..{int(png.max())}")
+    del model
+
+    terms = []
+    real_step = loop.train_step
+
+    def train_step(state, cam, batch, **kw):
+        state, metrics = real_step(state, cam, batch, **kw)
+        terms.append((kw.get("use_depth"), metrics["depth_loss"], metrics["loss"]))
+        return state, metrics
+
+    out_dir = os.path.join(root, "depth_model")
+    _kernels.reset_launches()
+    loop.train_step = train_step
+    try:
+        cli.main(["-s", scene_dir, "-m", out_dir, "-d", "depths", "-r", "1", "--iterations", "3",
+                  "--disable_viewer", "--quiet", "--seed", str(seed), "--device", device])
+        torch.cuda.synchronize()
+    finally:
+        loop.train_step = real_step
+    launches = dict(_kernels.launches)
+    vals = [(use, float(d), float(total)) for use, d, total in terms]
+    print(f"launches during the depth-map run: {launches}")
+    for i, (use, d, total) in enumerate(vals):
+        print(f"  iteration {i + 1}: use_depth {use}, depth term {d:.6f} of loss {total:.6f}")
+    if len(vals) < 3 or not all(use and math.isfinite(d) and d > 0 for use, d, _ in vals):
+        raise RuntimeError("the -d run did not train with a finite, nonzero depth term")
     return launches
 
 
@@ -1637,6 +1873,7 @@ def main():
     bench_phase()
     scene_dir = make_cli_scene(root, model_dir)
     launches["train CLI"] = train_cli_phase(root, scene_dir, args.seed)
+    launches["depth maps"] = depth_maps_phase(root, scene_dir, model_dir, args.seed)
     launches["segscan"], row = segscan_phase(tctx)
     rows.append(row)
     del tctx

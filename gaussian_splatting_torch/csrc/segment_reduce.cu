@@ -1,6 +1,7 @@
 // K6 segment reduce: per-Gaussian sums of gradient rows in expansion order.
 // Gaussian g owns the contiguous rows [offsets[g], offsets[g + 1]) of a
-// (n, 10) array (the wrapper clamps the offsets to n); the result is (P, 10).
+// (n, 10) array (the wrapper's caller clamps the offsets to n); the result
+// is (P, 10).
 //
 // Replaces gaussian_splatting_tpu/ops/segreduce.py::segment_reduce_rows
 // (_segreduce_kernel), which reduced 128-row chunks into a rolling window of
@@ -10,10 +11,30 @@
 // dust into full-size steps).
 //
 // What bounds it on the card: bytes (each row read once, each sum written
-// once; one add per value).  Design: one thread per Gaussian sums its own
-// segment front to back, ten running sums in registers, then writes its
-// row.  No atomics, so the result is deterministic, and the plain twin
-// (ops/segreduce.py::segment_reduce_rows_plain) adds in the same order.
+// once; one add per value).  A design that came first ran one thread per
+// Gaussian summing its segment from global memory: at step k a warp loaded
+// the k-th row of 32 segments some 116 bytes apart, each of a row's 10
+// scalar loads touching about 11 sectors, and the warp ran as many steps as
+// its longest segment.
+//
+// Design: one warp per 32 consecutive Gaussians.  Their rows are one
+// contiguous range.  The warp reads its 33 offsets (one coalesced load),
+// then walks the range in windows of WINDOW rows: it stages a window into
+// shared memory with cp.async (16 bytes a copy, global to shared without
+// registers, all of a lane's copies in flight before it waits; every sector
+// read once and whole), each lane adds the rows of its own segment that lie
+// in the window to ten running sums in registers, and the warp moves on.
+// So each segment is summed strictly front to back from +0.0, across
+// windows when it is longer than one, exactly the order of the plain twin
+// (ops/segreduce.py::segment_reduce_rows_plain) and of K7's totals.  The
+// warp's 32 result rows (1280 contiguous bytes) go out through its window as
+// float4 stores.  No partition launch and no block-wide barrier: warps run
+// independently.  Measured against a load-balanced block design (the merge
+// path of rows and offsets, as csrc/expand.cu cuts its slots) and the same
+// warp design with plain 16-byte loads (tools/kernel_variants/
+// segment_reduce_*; PERF.md).
+//
+// Precondition (what the caller gives): offsets non-decreasing, each <= n.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -21,28 +42,82 @@
 namespace {
 
 constexpr int COLS = 10;
+constexpr int WARPS = 4;     // warps per block
+constexpr int WINDOW = 128;  // rows staged per warp at a time
+// a window's floats from a 16-byte boundary up to 2 floats before its
+// first row, in whole float4s
+constexpr int WIN_F4 = (WINDOW * COLS + 2 + 3) / 4;
 
-__global__ void segment_reduce_kernel(
+__global__ void __launch_bounds__(32 * WARPS) segment_reduce_kernel(
     const float* __restrict__ rows,       // (n, COLS)
-    const int32_t* __restrict__ offsets,  // (num_gaussians + 1,) clamped to n
-    int num_gaussians,
-    float* __restrict__ out)              // (num_gaussians, COLS)
+    const int32_t* __restrict__ offsets,  // (P + 1,) non-decreasing, <= n
+    int n, int P,
+    float* __restrict__ out)              // (P, COLS)
 {
-    const int g = blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= num_gaussians) return;
-    const int lo = offsets[g];
-    const int hi = offsets[g + 1];
+    __shared__ float4 s_win4[WARPS][WIN_F4];
+    const unsigned full = 0xffffffffu;
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    const int g0 = (blockIdx.x * WARPS + wid) * 32;
+    if (g0 >= P) return;  // whole warps
+    float* s = reinterpret_cast<float*>(s_win4[wid]);
+    const int lo = __ldg(offsets + min(g0 + lane, P));
+    const int whi = __ldg(offsets + min(g0 + 32, P));  // the warp's last row + 1
+    int hi = __shfl_down_sync(full, lo, 1);
+    if (lane == 31) hi = whi;
+    const int wlo = __shfl_sync(full, lo, 0);
+    const bool aligned = ((uintptr_t)rows & 15) == 0;
+    const int64_t end = (int64_t)n * COLS;
+
     float acc[COLS];
 #pragma unroll
-    for (int k = 0; k < COLS; ++k) acc[k] = 0.0f;
-    for (int i = lo; i < hi; ++i) {
-        const float* r = rows + (size_t)i * COLS;
+    for (int c = 0; c < COLS; ++c) acc[c] = 0.0f;
+    for (int c0 = wlo; c0 < whi; c0 += WINDOW) {  // warp-uniform
+        const int c1 = min(c0 + WINDOW, whi);
+        const int64_t a0 = ((int64_t)c0 * COLS) & ~(int64_t)3, a1 = (int64_t)c1 * COLS;
+        if (aligned) {
+            const int n4 = (int)((a1 - a0 + 3) >> 2);
+            for (int q = lane; q < n4; q += 32) {
+                const int64_t f = a0 + 4 * (int64_t)q;
+                if (f + 4 <= end) {
+                    const unsigned sa = (unsigned)__cvta_generic_to_shared(&s_win4[wid][q]);
+                    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                                 ::"r"(sa), "l"(rows + f) : "memory");
+                } else {  // the array's last floats: no load past its end
+                    for (int e = 0; f + e < end; ++e) s[4 * q + e] = __ldg(rows + f + e);
+                }
+            }
+        } else {
+            for (int q = lane; q < (int)(a1 - a0); q += 32) s[q] = __ldg(rows + a0 + q);
+        }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncwarp();
+        const int r1 = min(hi, c1);
+        for (int r = max(lo, c0); r < r1; ++r) {
+            // row r starts at an even float: five 8-byte shared loads
+            const float2* src = reinterpret_cast<const float2*>(s + ((int64_t)r * COLS - a0));
 #pragma unroll
-        for (int k = 0; k < COLS; ++k) acc[k] = acc[k] + r[k];
+            for (int c = 0; c < COLS / 2; ++c) {
+                const float2 v = src[c];
+                acc[2 * c] = acc[2 * c] + v.x;
+                acc[2 * c + 1] = acc[2 * c + 1] + v.y;
+            }
+        }
+        __syncwarp();  // the window is read before the next one lands
     }
-    float* o = out + (size_t)g * COLS;
+    float* dst = out + (int64_t)g0 * COLS;
+    if (g0 + 32 <= P && ((uintptr_t)out & 15) == 0) {
+        // 32 rows of 40 bytes from a 1280-byte boundary: float4 stores
+        float2* s2 = reinterpret_cast<float2*>(s);
 #pragma unroll
-    for (int k = 0; k < COLS; ++k) o[k] = acc[k];
+        for (int c = 0; c < COLS / 2; ++c)
+            s2[lane * (COLS / 2) + c] = make_float2(acc[2 * c], acc[2 * c + 1]);
+        __syncwarp();
+        for (int q = lane; q < 32 * COLS / 4; q += 32)
+            reinterpret_cast<float4*>(dst)[q] = s_win4[wid][q];
+    } else if (g0 + lane < P) {
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) dst[lane * COLS + c] = acc[c];
+    }
 }
 
 }  // namespace
@@ -53,13 +128,17 @@ const char* gs_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
-int gs_segment_reduce(const void* rows, const void* offsets, int num_gaussians,
+// rows a warp stages at a time
+int gs_segment_reduce_window_rows() { return WINDOW; }
+
+int gs_segment_reduce(const void* rows, const void* offsets, int n, int num_gaussians,
                       void* out, void* stream) {
-    if (num_gaussians <= 0) return 0;
-    const int threads = 256;
-    const int blocks = (num_gaussians + threads - 1) / threads;
-    segment_reduce_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)rows, (const int32_t*)offsets, num_gaussians, (float*)out);
+    const int P = num_gaussians;
+    if (P <= 0) return 0;
+    const int warps = (P + 31) / 32;
+    segment_reduce_kernel<<<(warps + WARPS - 1) / WARPS, 32 * WARPS, 0,
+                            (cudaStream_t)stream>>>(
+        (const float*)rows, (const int32_t*)offsets, n, P, (float*)out);
     return (int)cudaGetLastError();
 }
 

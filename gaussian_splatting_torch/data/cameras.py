@@ -5,9 +5,9 @@ long side at 1600 px (with a one-time notice), {1, 2, 4, 8} divide, other
 values are a target width.  Pixels and masks stay host numpy; the camera
 matrices go to the requested device.  RGBA images keep their alpha as the
 training mask unless ``white_background`` composites it away, and
-``train_test_exp`` masks the left half of test views.  Depth maps come with
-the COLMAP reader (a later slice), so ``invdepth`` and ``depth_mask`` are
-``None``.
+``train_test_exp`` masks the left half of test views.  A camera whose info
+names a depth PNG gets ``invdepth`` and ``depth_mask`` as the JAX loader
+makes them (``read_depth_png``); otherwise both are ``None``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ class CameraInfo:
     image_name: str
     width: int
     height: int
+    depth_path: str = ""
+    depth_params: Optional[dict] = None
     is_test: bool = False
 
 
@@ -85,6 +87,62 @@ def _resolve_size(width: int, height: int, resolution: int, resolution_scale: fl
     return round(width / scale), round(height / scale)
 
 
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PNG colour types (IHDR byte 25)
+_GRAY, _RGB, _PALETTE, _GRAY_ALPHA, _RGBA = 0, 2, 3, 4, 6
+
+
+def read_depth_png(path: str) -> np.ndarray:
+    """A depth PNG as (H, W) float32: the values of its first channel in
+    OpenCV's order, which the JAX loader takes (``cv2.imread(path,
+    IMREAD_UNCHANGED)[..., 0]``).  OpenCV orders colour as BGR(A), so on a
+    colour map that is the blue channel; on a palette map, the blue of each
+    entry.  Gray maps keep their 8- or 16-bit values unchanged (a 1-bit map
+    reads as 0 / 255).  Forms PIL cannot give the same values for (16-bit
+    colour or gray-alpha, 2- and 4-bit gray) raise."""
+    from PIL import Image
+
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if len(head) < 26 or head[:8] != _PNG_SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"depth map {path}: not a PNG file")
+    bits, ctype = head[24], head[25]
+    if ctype == _GRAY and bits in (2, 4):
+        raise ValueError(f"depth map {path}: {bits}-bit grayscale PNGs are not supported")
+    if ctype in (_RGB, _GRAY_ALPHA, _RGBA) and bits != 8:
+        kind = {_RGB: "RGB", _GRAY_ALPHA: "gray+alpha", _RGBA: "RGBA"}[ctype]
+        raise ValueError(f"depth map {path}: {bits}-bit {kind} PNGs are not supported "
+                         "(PIL reads them at 8 bits)")
+    with Image.open(path) as im:
+        if ctype == _GRAY:
+            arr = np.asarray(im.convert("L") if bits == 1 else im)
+        elif ctype == _GRAY_ALPHA:
+            arr = np.asarray(im)[..., 0]
+        else:  # RGB, RGBA, palette: OpenCV's channel 0 is blue
+            arr = np.asarray(im.convert("RGB"))[..., 2]
+    return arr.astype(np.float32)
+
+
+def _load_depth(info: CameraInfo, w: int, h: int, is_synthetic: bool):
+    """(invdepth, depth_mask) at (h, w), as JAX's ``load_camera``: the map
+    over 512 (synthetic scenes) or 65536, resized NEAREST in PIL's mode F,
+    a mask of ones, zeroed when the view's depth-scale fit is off by more
+    than 5x from the median; the fit's scale and offset applied."""
+    from PIL import Image
+
+    raw = read_depth_png(info.depth_path) / (512.0 if is_synthetic else 65536.0)
+    raw = np.array(Image.fromarray(raw).resize((w, h), Image.NEAREST), np.float32)
+    depth_mask = np.ones((h, w), np.float32)
+    dp = info.depth_params
+    if dp is not None:
+        scale, med = dp.get("scale", 0), dp.get("med_scale", 1.0)
+        if scale < 0.2 * med or scale > 5 * med:
+            depth_mask *= 0.0  # unreliable fit
+        if scale > 0:
+            raw = raw * dp["scale"] + dp["offset"]
+    return raw, depth_mask
+
+
 def load_camera(
     info: CameraInfo,
     *,
@@ -92,6 +150,7 @@ def load_camera(
     resolution_scale: float = 1.0,
     white_background: bool = False,
     train_test_exp: bool = False,
+    is_synthetic: bool = False,
     exposure_idx: int = 0,
     device=None,
 ) -> Camera:
@@ -107,9 +166,13 @@ def load_camera(
     if train_test_exp and info.is_test:  # train on the right half only
         alpha = np.ones((h, w), np.float32) if alpha is None else alpha.copy()
         alpha[:, : w // 2] = 0.0
+    invdepth = depth_mask = None
+    if info.depth_path:
+        invdepth, depth_mask = _load_depth(info, w, h, is_synthetic)
     cam = make_camera(info.R, info.T, info.fovx, info.fovy, w, h, device=device)
     return Camera(info=info, cam=cam, image=np.ascontiguousarray(rgb.transpose(2, 0, 1)),
-                  alpha_mask=alpha, exposure_idx=exposure_idx)
+                  alpha_mask=alpha, invdepth=invdepth, depth_mask=depth_mask,
+                  exposure_idx=exposure_idx)
 
 
 def camera_to_json(idx: int, info: CameraInfo) -> dict:

@@ -2,9 +2,10 @@
 
 Counterpart of the Blender half of ``gaussian_splatting_tpu/data/
 dataset.py``: the OpenGL -> COLMAP axis flip, nerf++ normalization (camera
-centroid radius * 1.1), and the 100k-random-point init when the scene has
-no ``points3d.ply``.  COLMAP scenes belong to the next slice of the port
-(the COLMAP reader with depth maps).
+centroid radius * 1.1), the 100k-random-point init when the scene has
+no ``points3d.ply``, and with a depth directory each view's depth map at
+``<scene>/<depths>/<image stem>.png``.  COLMAP scenes belong to the next
+slice of the port (the COLMAP reader with depth-scale fits).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ def get_nerfpp_norm(cam_infos: List[CameraInfo]) -> dict:
     return {"translate": -center, "radius": float(radius)}
 
 
-def _read_transforms(path: str, transforms_file: str, extension: str, is_test: bool):
+def _read_transforms(path: str, transforms_file: str, extension: str, depths_dir: str,
+                     is_test: bool):
     with open(os.path.join(path, transforms_file)) as f:
         meta = json.load(f)
     fovx = meta["camera_angle_x"]
@@ -67,6 +69,8 @@ def _read_transforms(path: str, transforms_file: str, extension: str, is_test: b
         c2w[:3, 1:3] *= -1  # OpenGL -> COLMAP axes
         w2c = np.linalg.inv(c2w)
         width, height = image_size(image_path)
+        name = os.path.basename(file_path)
+        stem = os.path.splitext(name)[0]
         infos.append(
             CameraInfo(
                 uid=idx,
@@ -75,9 +79,11 @@ def _read_transforms(path: str, transforms_file: str, extension: str, is_test: b
                 fovx=fovx,
                 fovy=focal_to_fov(fov_to_focal(fovx, width), height),
                 image_path=image_path,
-                image_name=os.path.basename(file_path),
+                image_name=name,
                 width=width,
                 height=height,
+                depth_path=os.path.join(path, depths_dir, stem + ".png") if depths_dir else "",
+                depth_params=None,
                 is_test=is_test,
             )
         )
@@ -89,10 +95,11 @@ def read_blender_scene(
     white_background: bool = False,
     eval_split: bool = True,
     extension: str = ".png",
+    depths_dir: str = "",
 ) -> SceneInfo:
-    train = _read_transforms(path, "transforms_train.json", extension, False)
+    train = _read_transforms(path, "transforms_train.json", extension, depths_dir, False)
     test = (
-        _read_transforms(path, "transforms_test.json", extension, True)
+        _read_transforms(path, "transforms_test.json", extension, depths_dir, True)
         if os.path.exists(os.path.join(path, "transforms_test.json"))
         else []
     )
@@ -120,6 +127,9 @@ def read_blender_scene(
 
 
 def detect_and_load_scene(path: str, **kw) -> SceneInfo:
+    """The scene at ``path``, as JAX's reader takes it: keywords
+    ``images`` (COLMAP only), ``depths``, ``eval_split`` and
+    ``white_background``."""
     if os.path.exists(os.path.join(path, "sparse")):
         raise NotImplementedError(
             "COLMAP scenes are not ported yet: the COLMAP reader with depth maps "
@@ -131,5 +141,6 @@ def detect_and_load_scene(path: str, **kw) -> SceneInfo:
             path,
             white_background=kw.get("white_background", False),
             eval_split=kw.get("eval_split", True),
+            depths_dir=kw.get("depths", ""),
         )
     raise ValueError(f"Could not recognize scene type for {path}")

@@ -35,8 +35,8 @@ def segment_reduce_rows(rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tens
     out = torch.empty((P, COLS), dtype=torch.float32, device=rows.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     _kernels.launch(
-        "segment_reduce", "gs_segment_reduce", [vp, vp, ci, vp, vp],
-        rows.data_ptr(), offsets.data_ptr(), P, out.data_ptr(),
+        "segment_reduce", "gs_segment_reduce", [vp, vp, ci, ci, vp, vp],
+        rows.data_ptr(), offsets.data_ptr(), rows.shape[0], P, out.data_ptr(),
         _kernels.current_stream(rows.device),
     )
     return out

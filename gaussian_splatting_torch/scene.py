@@ -56,6 +56,8 @@ class Scene:
 
         info: SceneInfo = detect_and_load_scene(
             cfg.source_path,
+            images=cfg.images,
+            depths=cfg.depths,
             eval_split=cfg.eval,
             white_background=cfg.white_background,
         )
@@ -72,7 +74,8 @@ class Scene:
         self.cameras_extent = info.nerf_normalization["radius"]
 
         kw = dict(resolution=cfg.resolution, white_background=cfg.white_background,
-                  train_test_exp=cfg.train_test_exp, device=self.device)
+                  train_test_exp=cfg.train_test_exp, is_synthetic=info.is_nerf_synthetic,
+                  device=self.device)
         print("Loading Training Cameras")
         self.train_cameras = [load_camera(ci, exposure_idx=i, **kw)
                               for i, ci in enumerate(info.train_cameras)]

@@ -183,3 +183,53 @@ def expand_edge_table(name: str, device=None):
         rect_w=col(3, torch.int32), span_flag=col(4, torch.int32), span_x0=col(5, torch.int32),
         span_cum=col(6, torch.int32), depth_key=col(7, torch.float32))
     return table, int(counts.sum()) + slack, gx, gx * gy
+
+
+SEGREDUCE_EDGE_CASES = ("all_empty", "one_long_segment", "clamped_to_n", "no_gaussians",
+                        "zero_runs", "ragged_tail") + tuple(
+    f"window_offset_{s}" for s in range(4))
+
+
+def segreduce_edge_table(name: str, device=None, long_rows: int = 100_000):
+    """(rows (N, 10) float32, offsets (P + 1,) int32) of one edge case of
+    ``SEGREDUCE_EDGE_CASES``, from a seed of its own: every segment empty;
+    one segment of ``long_rows`` rows among short ones; offsets clamped to
+    N (an overflowed frame); P of 0; runs of empty segments longer than a
+    warp's 32 among short segments, with -0.0 values; N odd, so the rows'
+    last float4 runs past their end; and, for s in 0..3, segments shifted by
+    a first one of s rows so that a 700-row segment crosses the kernel's
+    staging windows at each offset modulo the 4-float staging width, with s
+    rows past the last offset."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    extra = 0  # rows past the last offset
+    clamp = None
+    if name == "all_empty":
+        lengths, extra = [0] * 1300, 40
+    elif name == "one_long_segment":
+        lengths = [int(k) for k in rng.integers(0, 5, 300)] + [long_rows] + [
+            int(k) for k in rng.integers(0, 5, 300)]
+    elif name == "clamped_to_n":
+        lengths = [int(k) for k in rng.integers(0, 9, 3000)]
+        clamp = sum(lengths) - 137
+    elif name == "no_gaussians":
+        lengths, extra = [], 50
+    elif name == "zero_runs":
+        lengths = [int(k) for k in rng.integers(0, 9, 800)] + [0] * 1200 + [
+            int(k) for k in rng.integers(0, 9, 800)] + [0] * 600
+    elif name == "ragged_tail":
+        lengths = [int(k) for k in rng.integers(1, 7, 1500)]
+        lengths[-1] += 1 - sum(lengths) % 2  # N odd
+    elif name.startswith("window_offset_"):
+        s = int(name[-1])
+        lengths = [s] + [3] * 100 + [700] + [2, 0, 5] * 50 + [1]
+        extra = s
+    else:
+        raise ValueError(name)
+    dev = resolve_device(device)
+    cum = np.concatenate([[0], np.cumsum(lengths, dtype=np.int64)])
+    n = int(cum[-1]) + extra if clamp is None else clamp
+    offsets = np.minimum(cum, n).astype(np.int32)
+    rows = rng.standard_normal((n, 10)).astype(np.float32)
+    if name == "zero_runs":
+        rows[rng.uniform(size=n) < 0.1] = -0.0
+    return torch.from_numpy(rows).to(dev), torch.from_numpy(offsets).to(dev)

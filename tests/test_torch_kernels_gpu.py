@@ -23,8 +23,10 @@ from gaussian_splatting_torch.ops.preprocess import preprocess
 from gaussian_splatting_torch.ops.rasterize import _render, blend_fields, expansion_order, render
 from gaussian_splatting_torch.utils.testing import (
     EXPAND_EDGE_CASES,
+    SEGREDUCE_EDGE_CASES,
     expand_edge_table,
     random_scene,
+    segreduce_edge_table,
 )
 
 pytestmark = pytest.mark.gpu
@@ -191,6 +193,84 @@ def test_retile_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert _kernels.launches["retile"] == before + 1
     assert torch.equal(out, ut.retile_plain(img, **kw))
+
+
+RETILE_SIZES = {"17x9": (17, 9), "1000x563": (1000, 563), "1920x1080": (1920, 1080)}
+
+
+@pytest.mark.parametrize("cols", [1, 5, 8])
+@pytest.mark.parametrize("size", sorted(RETILE_SIZES))
+def test_retile_kernel_edges_match_plain(cuda, size, cols):
+    """K4's one thread per record at odd image sizes (padding in both
+    directions) and record widths other than the path's 5."""
+    width, height = RETILE_SIZES[size]
+    gx, gy = -(-width // 16), -(-height // 16)
+    g = torch.Generator(device=cuda).manual_seed(width + cols)
+    img = torch.randn((cols, height, width), generator=g, device=cuda)
+    kw = dict(grid_x=gx, grid_y=gy, tile_w=16, tile_h=16)
+    before = _kernels.launches["retile"]
+    out = ut.retile(img, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["retile"] == before + 1
+    assert out.shape == (gx * gy, 256, cols)
+    assert torch.equal(out, ut.retile_plain(img, **kw))
+
+
+def test_retile_kernel_wide_records(cuda):
+    """Records too wide for a pair of tiles in 48 KB of shared memory
+    (30 floats) are stored straight from registers."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+    img = torch.randn((30, 9, 17), generator=g, device=cuda)
+    kw = dict(grid_x=2, grid_y=1, tile_w=16, tile_h=16)
+    assert torch.equal(ut.retile(img, **kw), ut.retile_plain(img, **kw))
+
+
+def _segment_totals_by_segscan(rows, offsets):
+    """K7 over the segments' rows, flagged at each non-empty segment's first
+    row: (its value at each non-empty segment's last row, which segments)."""
+    from gaussian_splatting_torch.ops import segscan as ss
+
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    first, last = offsets[:-1].long() - lo, offsets[1:].long() - lo
+    nonempty = last > first
+    flags = torch.zeros(hi - lo, device=rows.device)
+    flags[first[nonempty]] = 1.0
+    scan = ss.segmented_cumsum(rows[lo:hi].t().contiguous(), flags)
+    return scan[:, last[nonempty] - 1].t(), nonempty
+
+
+@pytest.mark.parametrize("name", SEGREDUCE_EDGE_CASES)
+def test_segment_reduce_kernel_edges_match_plain_and_segscan(cuda, name):
+    """K6's warp decomposition at its edges (the tables of
+    ``utils.testing.segreduce_edge_table``, emulated on the CPU by
+    tests/test_torch_segreduce_warps.py), bitwise against its twin and
+    against K7's totals: every segment empty, one segment of 100k rows,
+    offsets clamped to N, P of 0, runs of empty segments longer than a
+    warp's 32, N odd, and a segment crossing the staging windows at each
+    offset of the staging width."""
+    rows, offsets = segreduce_edge_table(name, device=cuda)
+    before = _kernels.launches["segment_reduce"]
+    out = sr.segment_reduce_rows(rows, offsets)
+    torch.cuda.synchronize()
+    assert _kernels.launches["segment_reduce"] == before + 1
+    assert out.shape == (offsets.shape[0] - 1, sr.COLS)
+    want = sr.segment_reduce_rows_plain(rows, offsets)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    if int(offsets[-1]) > int(offsets[0]):
+        totals, nonempty = _segment_totals_by_segscan(rows, offsets)
+        assert torch.equal(totals.view(torch.int32), out[nonempty].view(torch.int32))
+
+
+def test_segment_reduce_kernel_unaligned_rows(cuda):
+    """Rows that do not start on a 16-byte boundary (a view one row in)
+    are staged float by float."""
+    rows, offsets = segreduce_edge_table("window_offset_1", device=cuda)
+    base = torch.zeros((rows.shape[0] + 1, sr.COLS), device=cuda)
+    base[1:] = rows
+    view = base[1:]
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(sr.segment_reduce_rows(view, offsets),
+                       sr.segment_reduce_rows_plain(rows, offsets))
 
 
 def test_blend_backward_kernel_matches_plain_and_leaves_the_tail(cuda):

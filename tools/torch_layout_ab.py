@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""A/B of versions of the port's layout kernels (K1 expand, K3 untile) on one
-NVIDIA card, on the inputs of chip_smoke.py's train parity: the bench
-scene's fixture model with seeded noise, view 0, 1920x1080.
+"""A/B of versions of the port's layout and reduce kernels (K1 expand, K3
+untile, K4 retile, K6 segment reduce) on one NVIDIA card, on the inputs of
+chip_smoke.py's train parity: the bench scene's fixture model with seeded
+noise, view 0, 1920x1080.
 
     python3 tools/torch_layout_ab.py --variant old=<dir> --variant new=<dir> [...]
 
-Each ``<dir>`` holds an ``expand.cu``, an ``untile.cu`` or both, with the C
-interface of ``gaussian_splatting_torch/csrc`` (for example the parent
-commit's, unpacked with ``git archive <commit> gaussian_splatting_torch/csrc``
-into a directory under ``build/``, or ``tools/kernel_variants/untile_staged``).
-Every source is built with the package's nvcc flags, held bitwise against
-its plain twin (K1: keys and owners; K3: the 5 planes of the 8-column
-records), and timed with CUDA events in turns: the variants in order, then
+Each ``<dir>`` holds any of ``expand.cu``, ``untile.cu``, ``retile.cu`` and
+``segment_reduce.cu``, with the C interface of ``gaussian_splatting_torch/
+csrc`` (for example the parent commit's, unpacked with ``git archive
+<commit> gaussian_splatting_torch/csrc`` into a directory under ``build/``,
+or ``tools/kernel_variants/retile_staged``).  Every source is built with the
+package's nvcc flags, held bitwise against its plain twin (K1: keys and
+owners; K3: the 5 planes of the 8-column records; K4: the records of the
+loss's image gradient; K6: the sums of the step's expansion-order gradient
+rows), and timed with CUDA events in turns: the variants in order, then
 in reverse, ``--rounds`` times; then each under torch.profiler.  A
 ``--probe`` is a build that leaves work out on purpose (for example
 ``tools/kernel_variants/expand_probe_no_rows``): it is timed with the
@@ -34,7 +37,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
-KERNELS = ("expand", "untile")
+KERNELS = ("expand", "untile", "retile", "segment_reduce")
 
 
 def build(name, src_dir):
@@ -64,7 +67,7 @@ def build(name, src_dir):
     return libs
 
 
-def launchers(libs, table, ekw, packed, ukw, dev):
+def launchers(libs, table, ekw, packed, ukw, d_img, d_exp, offsets, dev):
     """Each built kernel as a call that fills a preallocated output."""
     import torch
 
@@ -106,6 +109,48 @@ def launchers(libs, table, ekw, packed, ukw, dev):
                 raise RuntimeError(f"untile launch failed: {err}")
 
         calls["untile"] = (untile, torch.full((cols, h, w), float("nan"), device=dev))
+    if "retile" in libs:
+        fn_r = libs["retile"].gs_retile
+        fn_r.argtypes = [vp] + [ci] * 7 + [vp] * 2
+        fn_r.restype = ci
+        cols, h, w = d_img.shape
+        gx, gy = ukw["grid_x"], ukw["grid_y"]
+
+        def retile(out):
+            err = fn_r(d_img.data_ptr(), cols, gx, gy, ukw["tile_w"], ukw["tile_h"], h, w,
+                       out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"retile launch failed: {err}")
+
+        calls["retile"] = (retile, torch.full((gx * gy, ukw["tile_w"] * ukw["tile_h"], cols),
+                                              float("nan"), device=dev))
+    if "segment_reduce" in libs:
+        lib = libs["segment_reduce"]
+        n, P = d_exp.shape[0], offsets.shape[0] - 1
+        # three interfaces: the block design takes n and a scratch array of
+        # block ends, the warp design n, the first design neither
+        blocked = hasattr(lib, "gs_segment_reduce_block_items")
+        warped = hasattr(lib, "gs_segment_reduce_window_rows")
+        ends = torch.empty(-(-(n + P + 1) // lib.gs_segment_reduce_block_items()) + 1
+                           if blocked else 0, dtype=torch.int32, device=dev)
+        fn_s = lib.gs_segment_reduce
+        fn_s.argtypes = ([vp, vp, ci, ci, vp, vp, vp] if blocked else
+                         [vp, vp, ci, ci, vp, vp] if warped else [vp, vp, ci, vp, vp])
+        fn_s.restype = ci
+
+        def segment_reduce(out):
+            if blocked:
+                err = fn_s(d_exp.data_ptr(), offsets.data_ptr(), n, P, out.data_ptr(),
+                           ends.data_ptr(), stream)
+            elif warped:
+                err = fn_s(d_exp.data_ptr(), offsets.data_ptr(), n, P, out.data_ptr(), stream)
+            else:
+                err = fn_s(d_exp.data_ptr(), offsets.data_ptr(), P, out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"segment_reduce launch failed: {err}")
+
+        calls["segment_reduce"] = (segment_reduce,
+                                   torch.full((P, 10), float("nan"), device=dev))
     return calls
 
 
@@ -127,9 +172,10 @@ def main():
     from gaussian_splatting_torch.ops import blend as bl
     from gaussian_splatting_torch.ops import expand as ex
     from gaussian_splatting_torch.ops import instances as inst
+    from gaussian_splatting_torch.ops import segreduce as sr
     from gaussian_splatting_torch.ops import untile as ut
     from gaussian_splatting_torch.ops.preprocess import preprocess
-    from gaussian_splatting_torch.ops.rasterize import blend_fields
+    from gaussian_splatting_torch.ops.rasterize import blend_fields, expansion_order
 
     chip_smoke.device_phase()
     variants = dict(v.split("=", 1) for v in args.variant + args.probe)
@@ -147,29 +193,41 @@ def main():
         proj = preprocess(*model.activated_params(), cam, sh_degree=chip_smoke.SH_DEGREE)
         fields = blend_fields(proj)
     capacity = inst.required_capacity(model.capacity, setup["raster"].instance_slack)
-    _, _, packed, _, grid = chip_smoke.backward_inputs(setup, proj, fields, capacity)
+    layout, bargs, packed, d_img, grid = chip_smoke.backward_inputs(setup, proj, fields,
+                                                                   capacity)
     with torch.no_grad():
+        # K6's rows: K5 on the step's cotangent, in expansion order
+        ct = ut.retile_plain(d_img, **grid)
+        d_exp = expansion_order(bl.blend_backward(*bargs, packed, ct, grid_x=grid["grid_x"]),
+                                layout)
+        offsets = layout.seg_offsets
         table, _ = inst.build_table(proj)
         gx, gy = -(-chip_smoke.WIDTH // 16), -(-chip_smoke.HEIGHT // 16)
         ekw = dict(capacity=inst.internal_capacity(capacity), grid_x=gx, num_tiles=gx * gy)
         ukw = dict(grid, width=chip_smoke.WIDTH, height=chip_smoke.HEIGHT, cols=bl.CT_COLS)
         want = {"expand": ex.expand_instances_plain(table, **ekw),
-                "untile": ut.untile_plain(packed, **ukw)}
+                "untile": ut.untile_plain(packed, **ukw),
+                "retile": ut.retile_plain(d_img, **grid),
+                "segment_reduce": sr.segment_reduce_rows_plain(d_exp, offsets)}
         print(f"inputs: {table.depth_key.shape[0]} Gaussians, {ekw['capacity']} slots; "
               f"packed {tuple(packed.shape)} record stride {packed.stride(1)}, "
               f"{ukw['cols']} columns")
         chip_smoke.expand_work(table, ekw)
         chip_smoke.untile_work(packed, ukw)
+        print(f"retile: image gradient {tuple(d_img.shape)}; segment_reduce: "
+              f"{tuple(d_exp.shape)} rows, {offsets.shape[0] - 1} segments")
+        chip_smoke.segreduce_work(offsets, d_exp.shape[0])
 
         results, runs = {}, {}
         for name in variants:
-            runs[name] = launchers(libs[name], table, ekw, packed, ukw, dev)
+            runs[name] = launchers(libs[name], table, ekw, packed, ukw, d_img, d_exp, offsets,
+                                   dev)
             results[name] = {}
             for k, (call, out) in runs[name].items():
                 call(out)
                 torch.cuda.synchronize()
-                same = (torch.equal(out, want[k]) if k == "untile"
-                        else all(torch.equal(a, b) for a, b in zip(out, want[k])))
+                same = (all(torch.equal(a, b) for a, b in zip(out, want[k])) if k == "expand"
+                        else torch.equal(out, want[k]))
                 if not same and name not in probes:
                     raise RuntimeError(f"{name}/{k} disagrees with its plain twin")
                 results[name][f"{k}_equal"] = same
@@ -191,7 +249,7 @@ def main():
                 grids = {e.key.split("(")[-2].split("::")[-1]: (e.count, e.self_device_time_total)
                          for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
                 results[name][f"{k}_profiler_ms"] = sum(t / c for c, t in grids.values()) / 1e3
-                results[name][f"{k}_grids"] = sorted(grids)
+                results[name][f"{k}_grid_ms"] = {g: t / c / 1e3 for g, (c, t) in grids.items()}
     card = chip_smoke.card()
     for name, r in results.items():
         print(json.dumps({"variant": name, "card": card, **r}))
