@@ -5,7 +5,8 @@
 
 Phases (any failure raises, and the script exits non-zero):
   1. device   name, count, and nvidia-smi's name / power limit
-  2. build    nvcc builds every kernel of gaussian_splatting_torch/csrc at once
+  2. build    nvcc builds every kernel of gaussian_splatting_torch/csrc, and
+              K7's first design (SEGSCAN_FIRST_DESIGN), all at once
   3. fixture  from --seed: a Blender scene of 1920x1080 PNGs (3 test views
               on an orbit of radius 4 around the y axis at height -0.3,
               looking at the origin, fovx 0.9) and a trained-model directory
@@ -58,10 +59,19 @@ Phases (any failure raises, and the script exits non-zero):
               (the fixture model's rendered inverse depth x 512), loaded by
               the port's Scene through the training CLI's ``-d``; 3
               iterations, each with a finite, nonzero depth term
- 15. segscan        K7 on phase 8's expansion-order gradient rows (10 x ~1.76M,
+ 15. COLMAP scene   the CLI scene's 10 views as a COLMAP capture written by
+              the port's writers (1920x1080 JPEGs, 16-bit depth PNGs through a
+              known affine, points3D.bin with the 500k means, observations);
+              ``python -m gaussian_splatting_torch.make_depth_scale`` (every
+              scale within 5% of the affine's); the training CLI with the
+              default -r -1 (images resized to 1600x900), -d depths --eval,
+              30 iterations (K1-K6 launch, finite nonzero depth terms); the
+              render CLI on the test views
+ 16. segscan        K7 on phase 8's expansion-order gradient rows (10 x ~1.76M,
               flagged at each Gaussian segment's first slot): one launch as
               its path, then bitwise against its twin and, at each segment's
-              last slot, bitwise against K6's sums; timed and profiled
+              last slot, bitwise against K6's sums; timed and profiled, with
+              its first design timed on the same rows
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a card: without one it exits non-zero
 before printing any result.
@@ -117,6 +127,10 @@ NB_DIFF_MAX = 1e-4  # share of pixels whose NB may differ (fp rounding at T_EPS)
 TOL_BLEND_BWD = 1e-6
 TOL_GRAD = 3e-4  # gradients vs the all-twin path / the dense oracle, scaled
 TRAIN_STEPS = 12  # counted steps over the 3 views, then one profiled step
+REPO = os.path.dirname(os.path.abspath(__file__))
+# K7's first design, kept as a variant; the segscan phase times it beside
+# the package's kernel on the same inputs
+SEGSCAN_FIRST_DESIGN = os.path.join("tools", "kernel_variants", "segscan_thread")
 
 
 def phase(name):
@@ -145,16 +159,32 @@ def card():
 
 
 def build_phase():
+    """nvcc on every kernel of the package and on K7's first design, all at
+    once; returns the first design's library."""
     from gaussian_splatting_torch import _kernels
 
     phase("build")
     t0 = time.perf_counter()
-    reports = _kernels.build(force=True)
+    out_dir = os.path.join(REPO, "build", "chip_smoke_variants")
+    os.makedirs(out_dir, exist_ok=True)
+    first_lib = os.path.join(out_dir, "libsegscan_first.so")
+    first = subprocess.Popen(
+        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", first_lib,
+         os.path.join(REPO, SEGSCAN_FIRST_DESIGN, "segscan.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        reports = _kernels.build(force=True)
+    finally:
+        log, _ = first.communicate()
+    if first.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {SEGSCAN_FIRST_DESIGN}/segscan.cu:\n{log}")
+    reports["segscan (first design)"] = log
     print(f"built {sorted(reports)} in {time.perf_counter() - t0:.2f} s")
     for name, log in sorted(reports.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    return first_lib
 
 
 def make_fixture(root: str, seed: int, device: str = "cuda"):
@@ -1321,11 +1351,28 @@ def bench_phase(device="cuda", iters=10):
           f"{WIDTH}x{HEIGHT} on {card()}")
 
 
-def segscan_phase(tctx):
-    """K7 on the train parity's own rows: the expansion-order gradient rows
-    (field-major), flagged at each non-empty Gaussian segment's first slot.
-    One launch is the path's; then the twin (bitwise, as int32 patterns),
-    K6's sums at each segment's last slot (bitwise), and the timings."""
+def segscan_inputs(d_exp, offsets):
+    """K7's inputs on a step's expansion-order gradient rows: the rows
+    field-major, (10, N), flagged at each non-empty Gaussian segment's first
+    slot."""
+    import torch
+
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    vals = d_exp[lo:hi].t().contiguous()
+    first, last = offsets[:-1].long() - lo, offsets[1:].long() - lo
+    flags = torch.zeros(hi - lo, device=vals.device)
+    flags[first[last > first]] = 1.0
+    return vals, flags
+
+
+def segscan_phase(tctx, first_design_lib):
+    """K7 on the train parity's own rows (``segscan_inputs``).  One launch is
+    the path's; then the twin (bitwise, as int32 patterns), K6's sums at each
+    segment's last slot (bitwise), the timings, and the first design's
+    (``SEGSCAN_FIRST_DESIGN``, built beside the package's kernels) time on
+    the same inputs, also held bitwise to the twin."""
+    import ctypes
+
     import torch
 
     from gaussian_splatting_torch import _kernels
@@ -1334,13 +1381,11 @@ def segscan_phase(tctx):
 
     phase("segscan")
     d_exp, offsets = tctx["d_exp"], tctx["offsets"]
-    lo, hi = int(offsets[0]), int(offsets[-1])
-    vals = d_exp[lo:hi].t().contiguous()  # (10, N)
+    vals, flags = segscan_inputs(d_exp, offsets)
     n = vals.shape[1]
+    lo = int(offsets[0])
     first, last = offsets[:-1].long() - lo, offsets[1:].long() - lo
     nonempty = last > first
-    flags = torch.zeros(n, device=vals.device)
-    flags[first[nonempty]] = 1.0
     with torch.no_grad():
         _kernels.reset_launches()
         out = ss.segmented_cumsum(vals, flags)
@@ -1352,7 +1397,9 @@ def segscan_phase(tctx):
         plain = ss.segmented_cumsum_plain(vals, flags)
         same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
         err = float((out - plain).abs().max())
-        print(f"segscan: {vals.shape[0]} x {n} values, {int(nonempty.sum())} segments; "
+        lengths = (last - first)[nonempty]
+        print(f"segscan: {vals.shape[0]} x {n} values, {int(nonempty.sum())} segments "
+              f"(mean {float(lengths.float().mean()):.3f}, longest {int(lengths.max())}); "
               f"bitwise equal to its twin: {same} (max |diff| {err:.3e})")
         if not same:
             raise RuntimeError("segscan kernel disagrees with its plain version")
@@ -1364,16 +1411,43 @@ def segscan_phase(tctx):
             raise RuntimeError("segscan segment totals disagree with segment_reduce")
         ms = cuda_ms(lambda: ss.segmented_cumsum(vals, flags))
         plain_ms = cuda_ms(lambda: ss.segmented_cumsum_plain(vals, flags), iters=3, warmup=1)
-        print(f"segscan: {ms:.4f} ms per launch (CUDA events), plain {plain_ms:.4f} ms")
+        copy_ms = cuda_ms(vals.clone)
+        print(f"segscan: {ms:.4f} ms per launch (CUDA events), plain {plain_ms:.4f} ms; "
+              f"a device copy of the values (clone: the same bytes less the flags) "
+              f"{copy_ms:.4f} ms")
         # the profiler records none of the first few launches it traces (none
         # around a lone launch), so trace 50 and average those it recorded
         print("50 launches under the profiler:", end=" ")
         own_ms = profile_call(lambda: [ss.segmented_cumsum(vals, flags) for _ in range(50)],
                               ("segscan",))["segscan"]
+
+        fn = ctypes.CDLL(first_design_lib).gs_segscan
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out_first = torch.full_like(vals, float("nan"))
+        stream = _kernels.current_stream(vals.device)
+
+        def first_design():
+            err = fn(vals.data_ptr(), flags.data_ptr(), n, vals.shape[0], out_first.data_ptr(),
+                     stream)
+            if err:
+                raise RuntimeError(f"segscan first design: launch failed ({err})")
+
+        first_design()
+        torch.cuda.synchronize()
+        if not torch.equal(out_first.view(torch.int32), plain.view(torch.int32)):
+            raise RuntimeError("segscan first design disagrees with the plain version")
+        first_ms = cuda_ms(first_design)
+        print("first design, 50 launches under the profiler:", end=" ")
+        first_own = profile_call(lambda: [first_design() for _ in range(50)],
+                                 ("segscan",))["segscan"]
     row = kernel_row("segscan", "gaussian_splatting_tpu/ops/segscan.py:79", err, ms, plain_ms,
                      2 * vals.numel() * 4 + n * 4, 0, None)
     print(f"  segscan: {ms:.4f} ms (profiler {own_ms:.4f}, plain {plain_ms:.4f}, "
-          f"library none, bound {row['bound_ms']:.4f} by {row['bound_by']})")
+          f"library none, bound {row['bound_ms']:.4f} by {row['bound_by']}); first design "
+          f"({SEGSCAN_FIRST_DESIGN}) {first_ms:.4f} ms (profiler {first_own:.4f}), "
+          f"bitwise equal to the twin; {card()}")
     return launches, row
 
 
@@ -1756,6 +1830,193 @@ def depth_maps_phase(root, cli_scene_dir, model_dir, seed, device="cuda"):
     return launches
 
 
+# The COLMAP phase's capture: the depth maps hold the fixture model's rendered
+# inverse depth d as (d - OFFSET) / SCALE at the COLMAP scale (x 65536), so
+# the depth-scale fit should find SCALE.  A mean is observed at its pixel
+# when its own inverse depth is within COLMAP_AGREE of d there: the fit
+# divides mean absolute deviations, and at 2% the selection's own spread
+# came near the means' (their depths vary by some 10% across a view at
+# radius 20; a 128x96 rehearsal on the CPU fitted 0.26-0.36 for 0.5).  Then
+# the training run's length, the most observations kept per view, and the
+# size -r -1 gives the 1920-wide images.
+COLMAP_DEPTH_SCALE, COLMAP_DEPTH_OFFSET = 0.5, 0.01
+COLMAP_SCALE_TOL = 0.05
+COLMAP_AGREE = 0.002
+COLMAP_ITERATIONS = 30
+COLMAP_OBSERVATIONS = 4000
+COLMAP_SIZE = (1600, 900)
+
+
+def colmap_scene_phase(root, cli_scene_dir, model_dir, seed, device="cuda"):
+    """The CLI scene's 10 views as a COLMAP capture, written by the port's
+    own writers: one PINHOLE camera at the CLI scene's fov; ``images.bin``
+    with, per view, up to COLMAP_OBSERVATIONS of the fixture model's means
+    whose own inverse depth lies within COLMAP_AGREE (0.2%, well within 2%)
+    of the rendered inverse depth at their pixel, observed at that pixel's
+    corner so the fit samples it exactly; ``points3D.bin`` with the 500k means and DC colours;
+    ``images/`` as 1920x1080 JPEGs at quality 95; ``depths/`` as 16-bit PNGs
+    of the rendered inverse depth through a known affine.  Then
+    ``python -m gaussian_splatting_torch.make_depth_scale`` (each fitted scale
+    within 5% of the affine's), the training CLI in-process with the default
+    ``-r -1`` (the JPEGs resized to 1600x900 by the loader's C resize),
+    ``-d depths --eval`` for COLMAP_ITERATIONS iterations (K1-K6 launch,
+    every depth term finite and nonzero, every loaded image and depth map
+    1600x900), and the render CLI on the test views."""
+    import statistics
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch import render as render_cli
+    from gaussian_splatting_torch.config import RasterizeConfig
+    from gaussian_splatting_torch.data import colmap as cm
+    from gaussian_splatting_torch.data.dataset import read_blender_scene
+    from gaussian_splatting_torch.models.gaussians import load_model_ply
+    from gaussian_splatting_torch.ops.camera_math import fov_to_focal, make_camera
+    from gaussian_splatting_torch.ops.sh import SH_C0
+    from gaussian_splatting_torch.render import render_camera
+    from gaussian_splatting_torch.train import cli, loop
+    from gaussian_splatting_torch.train.loop import load_raster_state
+    from gaussian_splatting_torch.utils.image import to_uint8
+    from gaussian_splatting_torch.utils.testing import write_images_binary_with_tracks
+
+    phase("COLMAP scene")
+    t0 = time.perf_counter()
+    scene_dir = os.path.join(root, "colmap_scene")
+    sparse = os.path.join(scene_dir, "sparse", "0")
+    for d in (sparse, os.path.join(scene_dir, "images"), os.path.join(scene_dir, "depths")):
+        os.makedirs(d)
+    blender = read_blender_scene(cli_scene_dir)
+    infos = blender.train_cameras + blender.test_cameras
+    model = load_model_ply(
+        os.path.join(model_dir, "point_cloud", f"iteration_{ITERATION}", "point_cloud.ply"),
+        max_sh_degree=SH_DEGREE, device=device)
+    raster = load_raster_state(model_dir, RasterizeConfig())
+    bg = torch.zeros(3, device=device)
+    n = int(model.num_alive())
+    xyz = model.means3d[:n].detach().cpu().numpy().astype(np.float64)
+    rgb = to_uint8(model.features_dc[:n, 0].detach().cpu().numpy() * SH_C0 + 0.5)
+    fx, fy = fov_to_focal(infos[0].fovx, WIDTH), fov_to_focal(infos[0].fovy, HEIGHT)
+    cams = {1: cm.ColmapCamera(1, "PINHOLE", WIDTH, HEIGHT,
+                               np.array([fx, fy, WIDTH / 2, HEIGHT / 2]))}
+    rng = np.random.default_rng(seed)
+    images = {}
+    for k, info in enumerate(infos):
+        cam = make_camera(info.R, info.T, info.fovx, info.fovy, WIDTH, HEIGHT, device=device)
+        with torch.no_grad():
+            img, out, _ = render_camera(model, SimpleNamespace(cam=cam), raster, bg)
+        name = f"view_{k:02d}"
+        Image.fromarray(to_uint8(img.cpu().numpy().transpose(1, 2, 0))).save(
+            os.path.join(scene_dir, "images", name + ".jpg"), quality=95)
+        invd = out.invdepth.cpu().numpy().astype(np.float64)
+        mono = (invd - COLMAP_DEPTH_OFFSET) / COLMAP_DEPTH_SCALE
+        Image.fromarray(np.clip(np.rint(mono * 65536.0), 0, 65535).astype(np.uint16)).save(
+            os.path.join(scene_dir, "depths", name + ".png"))
+        w2c = np.asarray(info.R).T
+        pc = xyz @ w2c.T + np.asarray(info.T)
+        z = np.where(pc[:, 2] > 1e-6, pc[:, 2], np.inf)
+        u, v = fx * pc[:, 0] / z + WIDTH / 2, fy * pc[:, 1] / z + HEIGHT / 2
+        idx = np.flatnonzero((z < np.inf) & (u >= 0) & (u < WIDTH) & (v >= 0) & (v < HEIGHT))
+        at_pixel = invd[v[idx].astype(np.int64), u[idx].astype(np.int64)]
+        seen = idx[np.abs(1.0 / z[idx] - at_pixel) <= COLMAP_AGREE * at_pixel]
+        obs = np.sort(rng.choice(seen, size=min(len(seen), COLMAP_OBSERVATIONS), replace=False))
+        images[k + 1] = cm.ColmapImage(k + 1, cm.rotmat_to_qvec(w2c),
+                                       np.asarray(info.T, np.float64), 1, name + ".jpg",
+                                       np.floor(np.stack([u[obs], v[obs]], -1)),
+                                       obs.astype(np.int64) + 1)
+        print(f"  {name}.jpg: {len(idx)} means in view, {len(seen)} within "
+              f"{COLMAP_AGREE:.1%} of the rendered inverse depth, {len(obs)} observations kept")
+    cm.write_cameras_binary(os.path.join(sparse, "cameras.bin"), cams)
+    write_images_binary_with_tracks(os.path.join(sparse, "images.bin"), images)
+    cm.write_points3d_binary(os.path.join(sparse, "points3D.bin"), xyz, rgb)
+    del model
+    print(f"COLMAP capture in {time.perf_counter() - t0:.2f} s: {len(infos)} views at "
+          f"{WIDTH}x{HEIGHT}, {n} points, depth affine scale {COLMAP_DEPTH_SCALE} offset "
+          f"{COLMAP_DEPTH_OFFSET}")
+
+    t0 = time.perf_counter()
+    fit = subprocess.run([sys.executable, "-m", "gaussian_splatting_torch.make_depth_scale",
+                          "--base_dir", scene_dir, "--depths_dir",
+                          os.path.join(scene_dir, "depths")],
+                         cwd=REPO, capture_output=True, text=True)
+    if fit.returncode != 0:
+        raise RuntimeError(f"make_depth_scale failed:\n{fit.stdout}\n{fit.stderr}")
+    with open(os.path.join(sparse, "depth_params.json")) as f:
+        params = json.load(f)
+    print(f"make_depth_scale in {time.perf_counter() - t0:.2f} s: {fit.stdout.strip()}")
+    for name, p in sorted(params.items()):
+        print(f"  {name}: scale {p['scale']:.6f} (applied {COLMAP_DEPTH_SCALE}), offset "
+              f"{p['offset']:.6f} (applied {COLMAP_DEPTH_OFFSET})")
+    off = [k for k, p in params.items()
+           if not abs(p["scale"] / COLMAP_DEPTH_SCALE - 1.0) <= COLMAP_SCALE_TOL]
+    if len(params) != len(infos) or off:
+        raise RuntimeError(f"depth-scale fits off by more than 5%: {off} of {len(params)}")
+
+    out_dir = os.path.join(root, "colmap_model")
+    terms, loaded, load_s = [], [], []
+    real_scene = loop.Scene
+
+    def scene(*args, **kw):
+        t = time.perf_counter()
+        s = real_scene(*args, **kw)
+        load_s.append(time.perf_counter() - t)
+        loaded.extend((c.image.shape, None if c.invdepth is None else c.invdepth.shape)
+                      for c in s.get_train_cameras() + s.get_test_cameras())
+        return s
+
+    _kernels.reset_launches()
+    with LoopProbe() as probe:
+        real_step = loop.train_step
+
+        def train_step(state, cam, batch, **kw):
+            state, metrics = real_step(state, cam, batch, **kw)
+            terms.append((kw.get("use_depth"), metrics["depth_loss"]))
+            return state, metrics
+
+        loop.train_step, loop.Scene = train_step, scene
+        try:
+            cli.main(["-s", scene_dir, "-m", out_dir, "-d", "depths", "--eval", "--iterations",
+                      str(COLMAP_ITERATIONS), "--disable_viewer", "--quiet", "--seed", str(seed),
+                      "--device", device])
+            torch.cuda.synchronize()
+        finally:
+            loop.train_step, loop.Scene = real_step, real_scene
+    launches = dict(_kernels.launches)
+    print(f"launches during the COLMAP training run: {launches}")
+    missing = [k for k in _kernels.TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the COLMAP training path: {missing}")
+    w, h = COLMAP_SIZE
+    shapes = sorted(set(loaded), key=str)
+    print(f"scene load (COLMAP reader, {len(loaded)} JPEG decodes and resizes, depth maps, "
+          f"create_from_pcd): {load_s[0]:.3f} s; loaded (image, depth) shapes {shapes}")
+    if shapes != [((3, h, w), (h, w))]:
+        raise RuntimeError(f"loaded images are not {w}x{h} with depth maps: {shapes}")
+    steady = probe.steady_ms()
+    vals = [(use, float(d)) for use, d in terms]
+    print(f"{len(probe.starts)} iterations; {len(steady)} steady: mean "
+          f"{statistics.mean(steady):.3f} ms, median {statistics.median(steady):.3f} ms")
+    print("depth terms: " + ", ".join(f"{d:.6f}" for _, d in vals))
+    if len(vals) != COLMAP_ITERATIONS or not all(use and math.isfinite(d) and d > 0
+                                                 for use, d in vals):
+        raise RuntimeError("the COLMAP run did not train with finite, nonzero depth terms")
+
+    records = render_cli.main(["-m", out_dir, "--skip_train", "--device", device])
+    if len(records) != 2:
+        raise RuntimeError(f"expected 2 rendered test views, got {len(records)}")
+    for r in records:
+        with Image.open(r["path"]) as im:
+            size = im.size
+        print(f"  render CLI test view {r['index']}: {size[0]}x{size[1]}, "
+              f"{r['seconds'] * 1e3:.1f} ms wall, retries {r['retries']}")
+        if size != COLMAP_SIZE:
+            raise RuntimeError(f"rendered test view is {size}, not {COLMAP_SIZE}")
+    return launches
+
+
 def psnr_gain(scene_dir, out, device="cuda"):
     """Mean test-view PSNR of the iteration-300 snapshot against that of the
     initial create_from_pcd model, both rendered against the test PNGs."""
@@ -1857,8 +2118,8 @@ def main():
     args = parser.parse_args()
 
     kind, count = device_phase()
-    build_phase()
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    segscan_first_lib = build_phase()
+    root = os.path.join(REPO, "build", "chip_smoke")
     _, model_dir = make_fixture(root, args.seed)
     launches = {"render": main_path_phase(model_dir)}
     ctx = parity(model_dir)
@@ -1874,7 +2135,8 @@ def main():
     scene_dir = make_cli_scene(root, model_dir)
     launches["train CLI"] = train_cli_phase(root, scene_dir, args.seed)
     launches["depth maps"] = depth_maps_phase(root, scene_dir, model_dir, args.seed)
-    launches["segscan"], row = segscan_phase(tctx)
+    launches["COLMAP scene"] = colmap_scene_phase(root, scene_dir, model_dir, args.seed)
+    launches["segscan"], row = segscan_phase(tctx, segscan_first_lib)
     rows.append(row)
     del tctx
     shutil.rmtree(root, ignore_errors=True)

@@ -1,4 +1,5 @@
-"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+"""Build and bind the hand-written CUDA kernels in ``csrc/``, and the one
+host function there (``image_resize.cpp``).
 
 Each ``csrc/<name>.cu`` exports a plain C interface (no PyTorch headers), is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at first
@@ -7,8 +8,9 @@ pointers and the current CUDA stream and returns ``cudaGetLastError()`` after
 its launch; ``launch`` raises on a nonzero code.  Library file names carry a
 hash of the source and flags, so an edited source is rebuilt.
 
-Nothing here runs on the CPU path: the wrappers in ``ops/`` only reach this
-module for CUDA tensors.
+The CUDA wrappers in ``ops/`` only reach this module for CUDA tensors.
+``host_library`` builds a C++ source with ``g++`` the same way, for the
+image loader on either device.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -63,15 +66,15 @@ def _nvcc() -> str:
     return found
 
 
-def _source(name: str) -> str:
-    return os.path.join(CSRC_DIR, f"{name}.cu")
+def _source(name: str, ext: str = ".cu") -> str:
+    return os.path.join(CSRC_DIR, f"{name}{ext}")
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(name: str, ext: str = ".cu", flags: Sequence[str] = NVCC_FLAGS) -> str:
     h = hashlib.sha256()
-    with open(_source(name), "rb") as f:
+    with open(_source(name, ext), "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -118,6 +121,34 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_lib_path(name))
             lib.gs_error_string.restype = ctypes.c_char_p
             lib.gs_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
+    return lib
+
+
+# The JAX package's native host library's flags (gaussian_splatting_tpu/
+# native/__init__.py::_build), so that a function copied from it compiles to
+# the same arithmetic, fused multiply-adds included.
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cpp`` built by ``g++`` with ``HOST_FLAGS`` into the
+    build directory at first use, and loaded."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            # -march=native builds for this host: a copy of the build
+            # directory on another machine must not load it
+            out = _lib_path(name, ".cpp", HOST_FLAGS + (platform.node(),))
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                proc = subprocess.run(["g++", *HOST_FLAGS, _source(name, ".cpp"), "-o", tmp],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed for {name}.cpp:\n{proc.stderr}")
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(out)
             _libs[name] = lib
     return lib
 

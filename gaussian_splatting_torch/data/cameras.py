@@ -2,9 +2,11 @@
 
 Counterpart of ``gaussian_splatting_tpu/data/cameras.py``.  ``-1`` caps the
 long side at 1600 px (with a one-time notice), {1, 2, 4, 8} divide, other
-values are a target width.  Pixels and masks stay host numpy; the camera
-matrices go to the requested device.  RGBA images keep their alpha as the
-training mask unless ``white_background`` composites it away, and
+values are a target width, all of the decoded image's size.  The pixels
+are the JAX loader's, bit for bit: its native decoder's channels and its
+bilinear resize (``_load_pixels``).  Pixels and masks stay host numpy; the
+camera matrices go to the requested device.  RGBA images keep their alpha as
+the training mask unless ``white_background`` composites it away, and
 ``train_test_exp`` masks the left half of test views.  A camera whose info
 names a depth PNG gets ``invdepth`` and ``depth_mask`` as the JAX loader
 makes them (``read_depth_png``); otherwise both are ``None``.
@@ -19,7 +21,7 @@ from typing import Optional
 import numpy as np
 
 from gaussian_splatting_torch.ops.camera_math import CameraParams, make_camera
-from gaussian_splatting_torch.utils.image import read_image
+from gaussian_splatting_torch.utils.image import native_pixels, resize_bilinear_u8
 
 _warned_big = [False]
 
@@ -143,6 +145,23 @@ def _load_depth(info: CameraInfo, w: int, h: int, is_synthetic: bool):
     return raw, depth_mask
 
 
+def _load_pixels(path: str, resolution: int, resolution_scale: float) -> np.ndarray:
+    """(h, w, 3 or 4) uint8 at the resolved size, as JAX's loader makes them:
+    ``native_pixels`` resized by ``resize_bilinear_u8`` when the size
+    changes; for modes its native decoder refuses, its PIL path (PIL's
+    bilinear resize, then RGB)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        pixels = native_pixels(im)
+        if pixels is None:
+            w, h = _resolve_size(im.width, im.height, resolution, resolution_scale)
+            return np.asarray(im.resize((w, h), Image.BILINEAR).convert("RGB"))
+    ih, iw = pixels.shape[:2]
+    w, h = _resolve_size(iw, ih, resolution, resolution_scale)
+    return pixels if (w, h) == (iw, ih) else resize_bilinear_u8(pixels, h, w)
+
+
 def load_camera(
     info: CameraInfo,
     *,
@@ -154,8 +173,8 @@ def load_camera(
     exposure_idx: int = 0,
     device=None,
 ) -> Camera:
-    w, h = _resolve_size(info.width, info.height, resolution, resolution_scale)
-    arr = read_image(info.image_path, size=(w, h)).astype(np.float32) / 255.0
+    arr = _load_pixels(info.image_path, resolution, resolution_scale).astype(np.float32) / 255.0
+    h, w = arr.shape[:2]
     rgb = arr[..., :3]
     alpha = None
     if arr.shape[2] == 4:

@@ -32,6 +32,8 @@ def segmented_cumsum(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
         raise ValueError("segscan: flags must be (N,) float32")
     rows, n = vals.shape
     out = torch.empty_like(vals)
+    if out.numel() == 0:
+        return out
     vp, ci = ctypes.c_void_p, ctypes.c_int
     _kernels.launch(
         "segscan", "gs_segscan", [vp, vp, ci, ci, vp, vp],

@@ -1,16 +1,26 @@
 """Image file I/O and image metrics.
 
-PNG and the other formats go through PIL, which both this repository's
-machines provide.  Resizing is PIL's BILINEAR, the resampling the JAX
-package's loader uses.
+PNG, JPEG and the other formats are decoded by PIL, which both this
+repository's machines provide, into the channels the JAX package's native
+decoder gives (``native_pixels``).  Training images are resized as that
+package's loader resizes them, by a copy of its C function
+(``resize_bilinear_u8``, ``csrc/image_resize.cpp``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+# The channels the JAX package's native decoder gives each PIL mode it reads:
+# gray repeated to RGB, gray+alpha to RGBA (its loader expands both), palette
+# to RGB.  Modes missing here (16-bit gray, CMYK, ...) it refuses, and its
+# loader reads them through PIL instead.
+_NATIVE_MODES = {"1": "RGB", "L": "RGB", "LA": "RGBA", "P": "RGB", "PA": "RGBA",
+                 "RGB": "RGB", "RGBA": "RGBA"}
 
 
 def image_size(path: str) -> Tuple[int, int]:
@@ -21,16 +31,47 @@ def image_size(path: str) -> Tuple[int, int]:
         return im.size
 
 
-def read_image(path: str, size: Tuple[int, int] | None = None) -> np.ndarray:
-    """Decode to (H, W, 3 or 4) uint8, resized to ``size`` = (w, h) if given.
-    Alpha is kept (RGBA) when the file has one."""
+def native_pixels(im) -> Optional[np.ndarray]:
+    """An open PIL image as (H, W, 3 or 4) uint8, the pixels the JAX
+    package's loader takes from its native decoder: an alpha channel, or a
+    PNG's transparent colour (tRNS) as alpha, gives RGBA.  None for the modes
+    that decoder refuses."""
+    mode = _NATIVE_MODES.get(im.mode)
+    if mode is None:
+        return None
+    if "transparency" in im.info:
+        mode = "RGBA"
+    return np.asarray(im if im.mode == mode else im.convert(mode))
+
+
+def read_image(path: str) -> np.ndarray:
+    """Decode to (H, W, 3 or 4) uint8 as ``native_pixels`` does; other modes
+    as RGB."""
     from PIL import Image
 
     with Image.open(path) as im:
-        has_alpha = im.mode in ("RGBA", "LA")
-        if size is not None and tuple(size) != im.size:
-            im = im.resize(tuple(size), Image.BILINEAR)
-        return np.asarray(im.convert("RGBA" if has_alpha else "RGB"))
+        pixels = native_pixels(im)
+        return np.asarray(im.convert("RGB")) if pixels is None else pixels
+
+
+def resize_bilinear_u8(img_u8_hwc: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W, C) uint8 -> (height, width, C) uint8, bit for bit as the JAX
+    package's loader resizes a training image: two taps a side,
+    ``align_corners=False``, in double, rounded half away from zero."""
+    from gaussian_splatting_torch import _kernels
+
+    img = np.ascontiguousarray(img_u8_hwc)
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise ValueError(f"resize_bilinear_u8: expected (H, W, C) uint8, got {img.dtype} "
+                         f"{img.shape}")
+    out = np.empty((height, width, img.shape[2]), np.uint8)
+    fn = _kernels.host_library("image_resize").image_resize_bilinear_u8
+    ll = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_void_p, ll, ll, ll, ctypes.c_void_p, ll, ll]
+    fn.restype = ctypes.c_int
+    if fn(img.ctypes.data, *img.shape, out.ctypes.data, height, width) != 0:
+        raise ValueError(f"resize_bilinear_u8: cannot resize {img.shape} to {(height, width)}")
+    return out
 
 
 def write_image(path: str, pixels: np.ndarray) -> None:

@@ -7,7 +7,8 @@ both packages the same Gaussians and camera.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import struct
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -233,3 +234,72 @@ def segreduce_edge_table(name: str, device=None, long_rows: int = 100_000):
     if name == "zero_runs":
         rows[rng.uniform(size=n) < 0.1] = -0.0
     return torch.from_numpy(rows).to(dev), torch.from_numpy(offsets).to(dev)
+
+
+SEGSCAN_EDGE_CASES = ("empty", "single", "odd", "all_starts", "one_segment", "zero_segments") + \
+    tuple(f"crossing_{s}" for s in range(4))
+# the indices whose segment starts one block of K7 owns (csrc/segscan.cu)
+SEGSCAN_WINDOW = 512
+
+
+def segscan_edge_table(name: str, rows: int = 10, device=None):
+    """(vals (rows, n) float32, flags (n,) float32) of one edge case of
+    ``SEGSCAN_EDGE_CASES``, from a seed of its own: n of 0 and 1; n odd with
+    a leading run before the first flag; every index a start; one segment
+    over all of n; segments of exact zeros with -0.0 values; and, for s in
+    0..3, everything shifted by s indices (so that rows start at each offset
+    modulo the 4-float staging width) with a segment that crosses the first
+    window boundary and ends in the staged tail, and one that crosses the
+    second and runs past the tail."""
+    rng = np.random.default_rng(sum(map(ord, name)) + rows)
+    W = SEGSCAN_WINDOW
+    if name == "empty":
+        flags = np.zeros(0, np.float32)
+    elif name == "single":
+        flags = np.zeros(1, np.float32)
+    elif name == "odd":
+        flags = (rng.uniform(size=2 * W + 1001) < 0.3).astype(np.float32)
+        flags[:50] = 0.0
+    elif name == "all_starts":
+        flags = np.ones(3 * W + 1, np.float32)
+    elif name == "one_segment":
+        flags = np.zeros(3 * W + 77, np.float32)
+    elif name == "zero_segments":
+        flags = (rng.uniform(size=2 * W + 300) < 0.2).astype(np.float32)
+    elif name.startswith("crossing_"):
+        s = int(name[-1])
+        n = 3 * W + 200 + s
+        flags = np.zeros(n, np.float32)
+        flags[s::3] = 1.0
+        for a, b in ((W - 5 + s, W + 35 + s), (2 * W - 2 + s, 2 * W + 198 + s)):
+            flags[a:b] = 0.0
+            flags[a] = flags[b] = 1.0
+    else:
+        raise ValueError(name)
+    vals = rng.standard_normal((rows, flags.shape[0])).astype(np.float32)
+    if name == "zero_segments":
+        starts = np.flatnonzero(flags)
+        for a, b in zip(starts[::4], starts[1::4]):
+            vals[:, a:b] = 0.0
+            vals[:, a] = -0.0
+    dev = resolve_device(device)
+    return torch.from_numpy(vals).to(dev), torch.from_numpy(flags).to(dev)
+
+
+def write_images_binary_with_tracks(path: str, images: Dict) -> None:
+    """``images.bin`` with each image's 2D observations (``xys`` and
+    ``point3d_ids`` of ``data.colmap.ColmapImage``), which COLMAP writes and
+    ``data.colmap.write_images_binary``, like the JAX package's writer,
+    leaves empty.  The depth-scale fit needs them."""
+    from gaussian_splatting_torch.data.colmap import OBSERVATION
+
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for im in images.values():
+            f.write(struct.pack("<i4d3di", im.id, *im.qvec, *im.tvec, im.camera_id))
+            f.write(im.name.encode() + b"\x00")
+            n = 0 if im.xys is None else len(im.xys)
+            rec = np.empty(n, OBSERVATION)
+            if n:
+                rec["x"], rec["y"], rec["id"] = im.xys[:, 0], im.xys[:, 1], im.point3d_ids
+            f.write(struct.pack("<Q", n) + rec.tobytes())

@@ -24,9 +24,11 @@ from gaussian_splatting_torch.ops.rasterize import _render, blend_fields, expans
 from gaussian_splatting_torch.utils.testing import (
     EXPAND_EDGE_CASES,
     SEGREDUCE_EDGE_CASES,
+    SEGSCAN_EDGE_CASES,
     expand_edge_table,
     random_scene,
     segreduce_edge_table,
+    segscan_edge_table,
 )
 
 pytestmark = pytest.mark.gpu
@@ -362,6 +364,54 @@ def test_segscan_kernel_matches_plain(cuda):
     ref = ss.segmented_cumsum_plain(vals, flags)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     assert bool((out[:, 5000:7000].view(torch.int32) == 0).all())
+
+
+@pytest.mark.parametrize("rows", [1, 10, 13])
+@pytest.mark.parametrize("name", SEGSCAN_EDGE_CASES)
+def test_segscan_kernel_edges_match_plain_and_segment_reduce(cuda, name, rows):
+    """K7's windows at their edges (the tables of
+    ``utils.testing.segscan_edge_table``, emulated on the CPU by
+    tests/test_torch_segscan_blocks.py), bitwise against its twin and, with
+    10 rows, at each segment's last index against K6's sums of the same
+    segments: n of 0, 1 and odd, every index a start, one segment over all
+    of n, zero segments, and segments crossing window boundaries into the
+    staged tail and past it at each row alignment; 13 rows take two groups."""
+    from gaussian_splatting_torch.ops import segscan as ss
+
+    vals, flags = segscan_edge_table(name, rows, device=cuda)
+    n = vals.shape[1]
+    before = _kernels.launches["segscan"]
+    out = ss.segmented_cumsum(vals, flags)
+    torch.cuda.synchronize()
+    assert _kernels.launches["segscan"] == before + (n > 0)
+    want = ss.segmented_cumsum_plain(vals, flags)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    if rows == sr.COLS and n > 0:
+        is_start = flags > 0
+        is_start[0] = True
+        starts = torch.nonzero(is_start).flatten()
+        offsets = torch.cat([starts, starts.new_full((1,), n)]).to(torch.int32)
+        seg = sr.segment_reduce_rows(vals.t().contiguous(), offsets)
+        totals = out[:, offsets[1:].long() - 1].t()
+        assert torch.equal(totals.contiguous().view(torch.int32), seg.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["odd", "crossing_1", "one_segment"])
+def test_segscan_kernel_unaligned_rows(cuda, name):
+    """Values, flags and output that do not start on a 16-byte boundary
+    (views one float in) are staged, read and stored float by float."""
+    from gaussian_splatting_torch.ops import segscan as ss
+
+    vals, flags = segscan_edge_table(name, 10, device=cuda)
+    base_v = torch.zeros(vals.numel() + 1, device=cuda)
+    base_v[1:] = vals.reshape(-1)
+    base_f = torch.zeros(flags.numel() + 1, device=cuda)
+    base_f[1:] = flags
+    v, f = base_v[1:].view(vals.shape), base_f[1:]
+    out = ss.segmented_cumsum(v, f)
+    torch.cuda.synchronize()
+    want = ss.segmented_cumsum_plain(vals, flags)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 # Edge cases of K2's and K5's staging: batches of 256 (K2) and 128 (K5)

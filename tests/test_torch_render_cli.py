@@ -94,8 +94,15 @@ def test_render_cli_matches_jax_cli(tmp_path, monkeypatch):
 
 
 def test_render_cli_rejects_colmap_scenes(tmp_path):
+    """A ``sparse/`` directory is read as a COLMAP capture, so one without a
+    model is refused as JAX's reader refuses it (COLMAP captures themselves
+    render: tests/test_torch_colmap.py)."""
+    from gaussian_splatting_tpu.data.dataset import detect_and_load_scene as jax_detect
+
     model = _write_fixture(str(tmp_path))
     colmap = tmp_path / "colmap"
     (colmap / "sparse").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="COLMAP"):
+    with pytest.raises(FileNotFoundError, match="cameras.txt"):
+        jax_detect(str(colmap))
+    with pytest.raises(FileNotFoundError, match="cameras.txt"):
         port_render.main(["-m", model, "-s", str(colmap), "--device", "cpu"])

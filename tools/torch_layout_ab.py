@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""A/B of versions of the port's layout and reduce kernels (K1 expand, K3
-untile, K4 retile, K6 segment reduce) on one NVIDIA card, on the inputs of
-chip_smoke.py's train parity: the bench scene's fixture model with seeded
-noise, view 0, 1920x1080.
+"""A/B of versions of the port's layout, reduce and scan kernels (K1 expand,
+K3 untile, K4 retile, K6 segment reduce, K7 segmented cumsum) on one NVIDIA
+card, on the inputs of chip_smoke.py's train parity: the bench scene's
+fixture model with seeded noise, view 0, 1920x1080.
 
     python3 tools/torch_layout_ab.py --variant old=<dir> --variant new=<dir> [...]
 
-Each ``<dir>`` holds any of ``expand.cu``, ``untile.cu``, ``retile.cu`` and
-``segment_reduce.cu``, with the C interface of ``gaussian_splatting_torch/
-csrc`` (for example the parent commit's, unpacked with ``git archive
-<commit> gaussian_splatting_torch/csrc`` into a directory under ``build/``,
-or ``tools/kernel_variants/retile_staged``).  Every source is built with the
-package's nvcc flags, held bitwise against its plain twin (K1: keys and
-owners; K3: the 5 planes of the 8-column records; K4: the records of the
-loss's image gradient; K6: the sums of the step's expansion-order gradient
-rows), and timed with CUDA events in turns: the variants in order, then
-in reverse, ``--rounds`` times; then each under torch.profiler.  A
-``--probe`` is a build that leaves work out on purpose (for example
+Each ``<dir>`` holds any of ``expand.cu``, ``untile.cu``, ``retile.cu``,
+``segment_reduce.cu`` and ``segscan.cu``, with the C interface of
+``gaussian_splatting_torch/csrc`` (for example the parent commit's, unpacked
+with ``git archive <commit> gaussian_splatting_torch/csrc`` into a directory
+under ``build/``, or ``tools/kernel_variants/retile_staged``).  Every source
+is built with the package's nvcc flags, held bitwise against its plain twin
+(K1: keys and owners; K3: the 5 planes of the 8-column records; K4: the
+records of the loss's image gradient; K6: the sums of the step's
+expansion-order gradient rows; K7: the scan of those rows, field-major,
+flagged at each Gaussian's first slot, as chip_smoke.py's segscan phase runs
+it), and timed with CUDA events in turns: the variants in order, then in
+reverse, ``--rounds`` times; then each under torch.profiler.  A ``--probe``
+is a build that leaves work out on purpose (for example
 ``tools/kernel_variants/expand_probe_no_rows``): it is timed with the
 variants and reported, but not held to the twin.  Prints the build reports,
 one JSON line per variant and the card's name and power limit.
@@ -37,7 +39,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
-KERNELS = ("expand", "untile", "retile", "segment_reduce")
+KERNELS = ("expand", "untile", "retile", "segment_reduce", "segscan")
 
 
 def build(name, src_dir):
@@ -67,7 +69,7 @@ def build(name, src_dir):
     return libs
 
 
-def launchers(libs, table, ekw, packed, ukw, d_img, d_exp, offsets, dev):
+def launchers(libs, table, ekw, packed, ukw, d_img, d_exp, offsets, scan, dev):
     """Each built kernel as a call that fills a preallocated output."""
     import torch
 
@@ -151,6 +153,19 @@ def launchers(libs, table, ekw, packed, ukw, d_img, d_exp, offsets, dev):
 
         calls["segment_reduce"] = (segment_reduce,
                                    torch.full((P, 10), float("nan"), device=dev))
+    if "segscan" in libs:
+        vals, flags = scan
+        fn_c = libs["segscan"].gs_segscan
+        fn_c.argtypes = [vp, vp, ci, ci, vp, vp]
+        fn_c.restype = ci
+
+        def segscan(out):
+            err = fn_c(vals.data_ptr(), flags.data_ptr(), vals.shape[1], vals.shape[0],
+                       out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"segscan launch failed: {err}")
+
+        calls["segscan"] = (segscan, torch.full_like(vals, float("nan")))
     return calls
 
 
@@ -173,6 +188,7 @@ def main():
     from gaussian_splatting_torch.ops import expand as ex
     from gaussian_splatting_torch.ops import instances as inst
     from gaussian_splatting_torch.ops import segreduce as sr
+    from gaussian_splatting_torch.ops import segscan as ss
     from gaussian_splatting_torch.ops import untile as ut
     from gaussian_splatting_torch.ops.preprocess import preprocess
     from gaussian_splatting_torch.ops.rasterize import blend_fields, expansion_order
@@ -205,10 +221,12 @@ def main():
         gx, gy = -(-chip_smoke.WIDTH // 16), -(-chip_smoke.HEIGHT // 16)
         ekw = dict(capacity=inst.internal_capacity(capacity), grid_x=gx, num_tiles=gx * gy)
         ukw = dict(grid, width=chip_smoke.WIDTH, height=chip_smoke.HEIGHT, cols=bl.CT_COLS)
+        scan = chip_smoke.segscan_inputs(d_exp, offsets)
         want = {"expand": ex.expand_instances_plain(table, **ekw),
                 "untile": ut.untile_plain(packed, **ukw),
                 "retile": ut.retile_plain(d_img, **grid),
-                "segment_reduce": sr.segment_reduce_rows_plain(d_exp, offsets)}
+                "segment_reduce": sr.segment_reduce_rows_plain(d_exp, offsets),
+                "segscan": ss.segmented_cumsum_plain(*scan)}
         print(f"inputs: {table.depth_key.shape[0]} Gaussians, {ekw['capacity']} slots; "
               f"packed {tuple(packed.shape)} record stride {packed.stride(1)}, "
               f"{ukw['cols']} columns")
@@ -221,13 +239,14 @@ def main():
         results, runs = {}, {}
         for name in variants:
             runs[name] = launchers(libs[name], table, ekw, packed, ukw, d_img, d_exp, offsets,
-                                   dev)
+                                   scan, dev)
             results[name] = {}
             for k, (call, out) in runs[name].items():
                 call(out)
                 torch.cuda.synchronize()
                 same = (all(torch.equal(a, b) for a, b in zip(out, want[k])) if k == "expand"
-                        else torch.equal(out, want[k]))
+                        else torch.equal(out.view(torch.int32), want[k].view(torch.int32))
+                        if k == "segscan" else torch.equal(out, want[k]))
                 if not same and name not in probes:
                     raise RuntimeError(f"{name}/{k} disagrees with its plain twin")
                 results[name][f"{k}_equal"] = same
