@@ -72,6 +72,16 @@ Phases (any failure raises, and the script exits non-zero):
               its path, then bitwise against its twin and, at each segment's
               last slot, bitwise against K6's sums; timed and profiled, with
               its first design timed on the same rows
+ 17. evaluation     the analytic "spheres" scene at JAX's defaults (100 train
+              and 12 test views at 800x600 from 1600x1200 rays each, depth
+              maps), shaded on the card once its float32 shader agrees with
+              float64 on the CPU; the training CLI for 500 iterations with
+              the viewer on while a client thread asks for test view 0 twice;
+              the trained model's viewer frames against the render CLI's PNG
+              and a direct render at scaling modifier 0.5; the render CLI at
+              iterations 1 and 500; ``metrics`` with LPIPS weights drawn from
+              --seed (finite scores, a 1 dB PSNR gain); LPIPS on the card
+              against the CPU.  Prints each step's wall time
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a card: without one it exits non-zero
 before printing any result.
@@ -2017,6 +2027,287 @@ def colmap_scene_phase(root, cli_scene_dir, model_dir, seed, device="cuda"):
     return launches
 
 
+# The evaluation phase: JAX's defaults for the analytic scene, a short
+# training run at that size, and the LPIPS comparison's tolerance
+EVAL_SCENE = "spheres"
+EVAL_SIZE = (800, 600)
+EVAL_VIEWS = (100, 12)  # train, test
+EVAL_ITERATIONS = 500
+# With a white background the JAX loop, and so the port, resets opacities at
+# densify_from_iter (500 by default) before it saves that iteration's
+# snapshot, where the reference trainer saves first: the phase moves
+# densify_from_iter past the run, which changes nothing else in 500
+# iterations (densification starts after densify_from_iter)
+EVAL_PSNR_GAIN_DB = 1.0
+EVAL_DEADLINE_S = 420.0  # the whole phase; past it the script exits non-zero
+EVAL_SOCKET_TIMEOUT_S = 120.0
+TOL_LPIPS_REL = 1e-4
+VIEWER_EQUAL_SHARE = 0.999  # frame values equal to the render CLI's PNG
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _past_deadline():
+    print(f"chip_smoke: the evaluation phase passed its {EVAL_DEADLINE_S:.0f} s deadline",
+          file=sys.stderr, flush=True)
+    os._exit(1)
+
+
+def _check_launches(launches, names, what):
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on {what}: {missing}")
+
+
+def evaluation_phase(root, seed, device="cuda"):
+    """The evaluation suite at full width on the analytic "spheres" scene
+    (JAX's defaults: 800x600 from 1600x1200 rays a view, 100 train and 12
+    test views, with depth maps), shaded on the card after its float32
+    shader is held to the float64 one on the CPU.  The training CLI runs
+    EVAL_ITERATIONS iterations in-process with the viewer on, while a client
+    thread asks for test view 0 twice (without and with training); the
+    trained model's viewer frames are held to the render CLI's PNG and to a
+    direct render at scaling modifier 0.5; the render CLI renders iterations
+    1 and EVAL_ITERATIONS; ``metrics`` scores both with LPIPS weights drawn
+    from ``seed``; and LPIPS on the card is held to LPIPS on the CPU."""
+    import statistics
+    import threading
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch import metrics as metrics_cli
+    from gaussian_splatting_torch import render as render_cli
+    from gaussian_splatting_torch.config import (
+        ModelConfig,
+        PipelineConfig,
+        RasterizeConfig,
+        load_config,
+    )
+    from gaussian_splatting_torch.data.cameras import load_camera
+    from gaussian_splatting_torch.data.dataset import read_blender_scene
+    from gaussian_splatting_torch.ops.lpips import make_lpips
+    from gaussian_splatting_torch.ops.rasterize import render
+    from gaussian_splatting_torch.scene import Scene
+    from gaussian_splatting_torch.train import cli
+    from gaussian_splatting_torch.train.loop import load_raster_state, render_custom_cam
+    from gaussian_splatting_torch.utils import synthetic_dataset as sd
+    from gaussian_splatting_torch.utils.image import read_image
+    from gaussian_splatting_torch.utils.testing import (
+        ViewerClient,
+        analytic_test_rays,
+        random_lpips_weights,
+        viewer_message,
+    )
+    from gaussian_splatting_torch.viewer.network_gui import (
+        ViewerServer,
+        _decode_camera,
+        image_to_bytes,
+        poll_viewer,
+    )
+
+    phase("evaluation")
+    t_phase = time.perf_counter()
+    watchdog = threading.Timer(EVAL_DEADLINE_S, _past_deadline)
+    watchdog.daemon = True
+    watchdog.start()
+    width, height = EVAL_SIZE
+    eye, d = analytic_test_rays()
+    for name in sd.ANALYTIC_SCENES:
+        spheres, plane = sd._analytic_scene(seed, name)
+        rgb64, a64, t64 = (x.numpy() for x in sd.shade_analytic(
+            torch.from_numpy(eye), torch.from_numpy(d), spheres, plane, dtype=torch.float64))
+        rgb, a, t = (x.double().cpu().numpy() for x in sd.shade_analytic(
+            torch.from_numpy(eye).to(device), torch.from_numpy(d).to(device), spheres, plane))
+        hit = a64 > 0
+        q97 = float(np.quantile(np.abs(rgb - rgb64).max(axis=1), 0.97))
+        t_err = float(np.abs(t[hit] - t64[hit]).max())
+        print(f"shader {name}: float32 on {device} vs float64 on the CPU, {len(d)} rays: "
+              f"alpha equal {bool((a == a64).all())}, hit t max err {t_err:.3e}, rgb q97 "
+              f"{q97:.3e} (JAX's tolerances: equal, 2e-3 + 2e-3 rel, < 0.02)")
+        if not ((a == a64).all() and np.allclose(t[hit], t64[hit], rtol=2e-3, atol=2e-3)
+                and q97 < 0.02):
+            raise RuntimeError(f"the float32 shader disagrees with float64 on {name}")
+
+    scene_dir = os.path.join(root, "analytic_scene")
+    t0 = time.perf_counter()
+    sd.generate_analytic_dataset(scene_dir, num_train=EVAL_VIEWS[0], num_test=EVAL_VIEWS[1],
+                                 width=width, height=height, seed=seed, scene_name=EVAL_SCENE,
+                                 depths=True, device=device)
+    gen_s = time.perf_counter() - t0
+    n_views = sum(EVAL_VIEWS)
+    print(f"generation: {n_views} views of {EVAL_SCENE} at {width}x{height} (supersample 2, "
+          f"{4 * width * height} rays a view, depth maps) in {gen_s:.3f} s wall, "
+          f"{gen_s / n_views * 1e3:.1f} ms a view")
+
+    info = read_blender_scene(scene_dir).test_cameras[0]
+    cam = load_camera(info, resolution=1, white_background=True, is_synthetic=True,
+                      device=device).cam
+    port = _free_port()
+    out = os.path.join(root, "analytic_model")
+    served = {}
+
+    def client():
+        try:
+            c = ViewerClient("127.0.0.1", port, timeout=EVAL_SOCKET_TIMEOUT_S)
+            try:
+                served["frames"] = [c.request(viewer_message(cam, train=train))
+                                    for train in (False, True)]
+            finally:
+                c.close()
+        except OSError as e:  # reported by the checks below
+            served["error"] = repr(e)
+
+    thread = threading.Thread(target=client, daemon=True)
+    _kernels.reset_launches()
+    thread.start()
+    with LoopProbe() as probe:
+        t0 = time.perf_counter()
+        cli.main(["-s", scene_dir, "-m", out, "-w", "--eval", "--iterations",
+                  str(EVAL_ITERATIONS), "--test_iterations", str(EVAL_ITERATIONS),
+                  "--save_iterations", "1", str(EVAL_ITERATIONS),
+                  "--densify_from_iter", str(EVAL_ITERATIONS + 1), "--ip", "127.0.0.1",
+                  "--port", str(port), "--quiet", "--seed", str(seed), "--device", device])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    thread.join(timeout=EVAL_SOCKET_TIMEOUT_S)
+    launches = dict(_kernels.launches)
+    print(f"launches during the training run: {launches}")
+    _check_launches(launches, _kernels.TRAIN_KERNELS, "the evaluation training path")
+    if len(probe.starts) != EVAL_ITERATIONS or probe.first_step != 0:
+        raise RuntimeError(f"expected {EVAL_ITERATIONS} steps from 0, got "
+                           f"{len(probe.starts)} from {probe.first_step}")
+    steady = probe.steady_ms()
+    print(f"training: {EVAL_ITERATIONS} iterations in {train_s:.3f} s wall; {len(steady)} "
+          f"steady iterations: mean {statistics.mean(steady):.3f} ms, median "
+          f"{statistics.median(steady):.3f} ms")
+    for it, name, ms in probe.boundaries:
+        print(f"  boundary at iteration {it}: {name} {ms:.3f} ms wall (synchronised)")
+    print("  (a traceback above, if any, is the loop dropping the client once it closed, "
+          "as the JAX loop does)")
+    frames = served.get("frames", [])
+    n_bytes = width * height * 3
+    print(f"viewer during training: {len(frames)} frames of "
+          f"{[len(f or b'') for f, _ in frames]} bytes, verify strings "
+          f"{sorted({v for _, v in frames})}, client error {served.get('error')}")
+    if thread.is_alive() or len(frames) != 2 or any(
+            f is None or len(f) != n_bytes or v != scene_dir for f, v in frames):
+        raise RuntimeError("the viewer did not serve two frames of test view 0 while training")
+
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    records = []
+    for it in (1, EVAL_ITERATIONS):
+        records += render_cli.main(["-m", out, "--iteration", str(it), "--skip_train",
+                                    "--device", device])
+    render_s = time.perf_counter() - t0
+    _check_launches(dict(_kernels.launches), _kernels.RENDER_KERNELS, "the render CLI")
+    print(f"render CLI: iterations 1 and {EVAL_ITERATIONS}, {len(records)} test views in "
+          f"{render_s:.3f} s wall")
+    if len(records) != 2 * EVAL_VIEWS[1]:
+        raise RuntimeError(f"expected {2 * EVAL_VIEWS[1]} rendered views, got {len(records)}")
+
+    cfg = load_config(ModelConfig, os.path.join(out, "cfg_args.json"))
+    pipe = load_config(PipelineConfig, os.path.join(out, "pipe_args.json"))
+    raster = load_raster_state(out, RasterizeConfig(
+        antialiasing=pipe.antialiasing, impl=pipe.rasterizer_impl,
+        convert_SHs_python=pipe.convert_SHs_python,
+        compute_cov3D_python=pipe.compute_cov3D_python))
+    model = Scene(cfg, load_iteration=EVAL_ITERATIONS, shuffle=False, device=device).gaussians
+    state = SimpleNamespace(model=model)
+    bg = torch.ones(3, device=device)
+    server = ViewerServer("127.0.0.1", 0, device=device)
+    requests = [viewer_message(cam, train=False), viewer_message(cam, train=True,
+                                                                 scaling_modifier=0.5)]
+    got = []
+    viewer = ViewerClient("127.0.0.1", server.listener.getsockname()[1],
+                          timeout=EVAL_SOCKET_TIMEOUT_S)
+    talk = threading.Thread(target=lambda: got.extend(viewer.request(m) for m in requests),
+                            daemon=True)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    talk.start()
+    try:
+        poll_viewer(server, lambda c, sm: render_custom_cam(state, c, bg, scale_modifier=sm,
+                                                            raster=raster),
+                    cfg.source_path, EVAL_ITERATIONS, EVAL_ITERATIONS)
+        talk.join(timeout=EVAL_SOCKET_TIMEOUT_S)
+    finally:
+        viewer.close()
+        server.close()
+    viewer_s = time.perf_counter() - t0
+    _check_launches(dict(_kernels.launches), _kernels.RENDER_KERNELS, "the viewer's frames")
+    if len(got) != 2 or any(f is None or len(f) != n_bytes for f, _ in got):
+        raise RuntimeError("the trained model's viewer did not serve both frames")
+    frame = np.frombuffer(got[0][0], np.uint8).reshape(height, width, 3).astype(int)
+    png = read_image(os.path.join(out, "test", f"ours_{EVAL_ITERATIONS}", "renders",
+                                  "00000.png")).astype(int)
+    diff = np.abs(frame - png)
+    equal = float((diff == 0).mean())
+    with torch.no_grad():
+        half = render(*model.activated_params(), _decode_camera(requests[1], device), bg,
+                      sh_degree=model.max_sh_degree, scale_modifier=0.5, inference=True,
+                      cfg=raster)
+    same_half = image_to_bytes(half.image) == got[1][0]
+    print(f"viewer on the trained model: 2 frames in {viewer_s:.3f} s wall; scaling 1.0 vs the "
+          f"render CLI's PNG: {equal:.6f} of values equal, max diff {int(diff.max())}; scaling "
+          f"0.5 vs a direct render: bitwise {same_half}")
+    if equal < VIEWER_EQUAL_SHARE or diff.max() > 1 or not same_half:
+        raise RuntimeError("the viewer's frames disagree with the render CLI or a direct render")
+
+    weights = os.path.join(root, "lpips_random.npz")
+    np.savez(weights, **random_lpips_weights(np.random.default_rng(seed)))
+    t0 = time.perf_counter()
+    metrics_cli.main(["-m", out, "--lpips_weights", weights, "--device", device])
+    metrics_s = time.perf_counter() - t0
+    with open(os.path.join(out, "results.json")) as f:
+        results = json.load(f)
+    print(f"metrics: {EVAL_VIEWS[1]} test views x 2 methods in {metrics_s:.3f} s wall: "
+          f"{json.dumps(results)}")
+    print("  (LPIPS from random weights of VGG16's real shapes, drawn from --seed: it checks "
+          "the computation and is no quality measure)")
+    first, last = results.get("ours_1", {}), results.get(f"ours_{EVAL_ITERATIONS}", {})
+    values = [r.get(k) for r in (first, last) for k in ("SSIM", "PSNR", "LPIPS")]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in values):
+        raise RuntimeError(f"results.json lacks finite SSIM, PSNR and LPIPS: {results}")
+    gain = last["PSNR"] - first["PSNR"]
+    print(f"PSNR gain from iteration 1 to {EVAL_ITERATIONS}: {gain:.4f} dB "
+          f"(required {EVAL_PSNR_GAIN_DB})")
+    if not gain >= EVAL_PSNR_GAIN_DB:
+        raise RuntimeError("training did not raise the test PSNR by 1 dB")
+
+    pair = [read_image(os.path.join(out, "test", f"ours_{EVAL_ITERATIONS}", sub, "00000.png"))
+            .astype(np.float32)[..., :3] / 255.0 for sub in ("renders", "gt")]
+    on_card = make_lpips(weights, device=device)
+    on_card(*pair)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_value = on_card(*pair)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu_value = make_lpips(weights, device="cpu")(*pair)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    rel = abs(card_value - cpu_value) / abs(cpu_value)
+    print(f"LPIPS of one {width}x{height} pair: card {card_value:.8f} ({card_ms:.1f} ms wall), "
+          f"CPU {cpu_value:.8f} ({cpu_ms:.1f} ms wall, weights upload included), relative "
+          f"difference {rel:.3e} (required <= {TOL_LPIPS_REL})")
+    if not rel <= TOL_LPIPS_REL:
+        raise RuntimeError("LPIPS on the card disagrees with the CPU")
+    watchdog.cancel()
+    print(f"evaluation phase: {time.perf_counter() - t_phase:.3f} s wall (generation "
+          f"{gen_s:.3f}, training {train_s:.3f}, render {render_s:.3f}, viewer {viewer_s:.3f}, "
+          f"metrics {metrics_s:.3f})")
+    return launches
+
+
 def psnr_gain(scene_dir, out, device="cuda"):
     """Mean test-view PSNR of the iteration-300 snapshot against that of the
     initial create_from_pcd model, both rendered against the test PNGs."""
@@ -2139,6 +2430,7 @@ def main():
     launches["segscan"], row = segscan_phase(tctx, segscan_first_lib)
     rows.append(row)
     del tctx
+    launches["evaluation"] = evaluation_phase(root, args.seed)
     shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"kernels": add_launches(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

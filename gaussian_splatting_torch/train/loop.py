@@ -1,6 +1,6 @@
 """Host-side training orchestration: camera sampling, the SH ramp, the
 densify / opacity-reset schedule, instance-buffer sizing, capacity growth,
-evaluation, snapshots and checkpoints.
+evaluation, snapshots, checkpoints, and the remote viewer.
 
 Counterpart of ``gaussian_splatting_tpu/train/loop.py``, number for number:
 the same seeding, epoch camera stack, slack rules and schedule, so a run of
@@ -11,6 +11,8 @@ JAX's quantised steps.  Step metrics are read one iteration late (step i's
 step i overlaps the card's work on step i + 1; boundary iterations drain the
 queue.  An overflowed step leaves the state as it was (``train_step``'s
 device-side select); the loop puts its camera back and doubles the slack.
+With ``viewer_ip`` set, a viewer server (``viewer.network_gui``) is polled at
+the top of every iteration and serves ``render_custom_cam`` frames.
 """
 
 from __future__ import annotations
@@ -250,9 +252,14 @@ def train(
             total -= batch_bytes(old)
         return batch
 
+    viewer = None
     if viewer_ip:
-        print(f"Viewer server not ported yet ({viewer_ip}:{viewer_port}); "
-              "continuing without GUI")
+        from gaussian_splatting_torch.viewer.network_gui import ViewerServer, poll_viewer
+
+        try:
+            viewer = ViewerServer(viewer_ip, viewer_port, device=dev)
+        except OSError as e:
+            print(f"Viewer server unavailable ({e}); continuing without GUI")
 
     generator = torch.Generator(device=dev).manual_seed(seed)  # densify noise
     cam_stack = []
@@ -264,136 +271,147 @@ def train(
     last_m = np.zeros(6, np.float32)  # the newest read step's packed metrics
     t_start = time.time()
 
-    for iteration in range(first_iter + 1, opt.iterations + 1):
-        t_iter_start = time.time()
-        if debug_from >= 0 and iteration == debug_from:
-            print(f"[it {iteration}] enabling autograd anomaly detection")
-            torch.autograd.set_detect_anomaly(True)
-        if iteration % 1000 == 0:
-            state.model.one_up_sh_degree()
+    try:
+        for iteration in range(first_iter + 1, opt.iterations + 1):
+            t_iter_start = time.time()
+            if debug_from >= 0 and iteration == debug_from:
+                print(f"[it {iteration}] enabling autograd anomaly detection")
+                torch.autograd.set_detect_anomaly(True)
+            if viewer is not None:
+                poll_viewer(
+                    viewer,
+                    lambda cam, sm: render_custom_cam(state, cam, bg, scale_modifier=sm,
+                                                      raster=raster),
+                    model_cfg.source_path, iteration, opt.iterations,
+                )
+            if iteration % 1000 == 0:
+                state.model.one_up_sh_degree()
 
-        if not cam_stack:
-            cam_stack = list(range(len(train_cams)))
-            random.shuffle(cam_stack)
-        cam_idx = cam_stack.pop()
-        camera = train_cams[cam_idx]
-        if opt.random_background:
-            batch = make_batch(camera, np.random.rand(3).astype(np.float32))
-        else:
-            batch = cache_batch(cam_idx, camera)
-        state, metrics = train_step(state, camera.cam, batch, opt=opt, raster=raster,
-                                    use_exposure=model_cfg.train_test_exp,
-                                    use_depth=use_depth)
+            if not cam_stack:
+                cam_stack = list(range(len(train_cams)))
+                random.shuffle(cam_stack)
+            cam_idx = cam_stack.pop()
+            camera = train_cams[cam_idx]
+            if opt.random_background:
+                batch = make_batch(camera, np.random.rand(3).astype(np.float32))
+            else:
+                batch = cache_batch(cam_idx, camera)
+            state, metrics = train_step(state, camera.cam, batch, opt=opt, raster=raster,
+                                        use_exposure=model_cfg.train_test_exp,
+                                        use_depth=use_depth)
 
-        pending.append((iteration, t_iter_start, cam_idx, metrics))
-        need_sync = (
-            iteration % 100 == 0
-            or iteration == opt.iterations
-            or iteration in test_iterations
-            or iteration in save_iterations
-            or iteration in checkpoint_iterations
-            or on_iteration is not None
-            or torch.is_anomaly_enabled()
-        )
-        while pending and (need_sync or len(pending) > 1):
-            it_i, t_i, cam_i, metrics_i = pending.pop(0)
-            m = metrics_i["packed"].cpu().numpy()
-            if m[3] > 0:
-                # step it_i overflowed and changed nothing: its camera goes
-                # back on the stack; grow unless this burst already grew
-                cam_stack.append(cam_i)
-                if it_i > stale_ovf_cutoff:
-                    overflow_discards += 1
-                    slack = raster.instance_slack * 2.0
-                    print(f"[it {it_i}] instance buffer overflow — step was a "
-                          f"device-side no-op; instance_slack -> {slack} "
-                          f"({overflow_discards} consecutive)")
-                    raster = dataclasses.replace(raster, instance_slack=slack)
-                    stale_ovf_cutoff = iteration
-                    if overflow_discards >= MAX_OVERFLOW_DOUBLINGS:
-                        raise RuntimeError(
-                            "instance-buffer overflow persisted across 4 slack "
-                            "doublings — aborting instead of silently losing steps. "
-                            "Raise instance_slack or reduce resolution.")
-                continue
-            overflow_discards = 0
-            loss = float(m[0])
-            ema_loss = 0.4 * loss + 0.6 * ema_loss
-            last_m = m
-            max_demand = max(max_demand, int(m[4]))
-            if tb_writer is not None:
-                tb_writer.add_scalar("train_loss_patches/l1_loss", float(m[1]), it_i)
-                tb_writer.add_scalar("train_loss_patches/total_loss", loss, it_i)
-                tb_writer.add_scalar("total_points", int(m[5]), it_i)
-                tb_writer.add_scalar("iter_time", (time.time() - t_i) * 1000.0, it_i)
+            pending.append((iteration, t_iter_start, cam_idx, metrics))
+            need_sync = (
+                iteration % 100 == 0
+                or iteration == opt.iterations
+                or iteration in test_iterations
+                or iteration in save_iterations
+                or iteration in checkpoint_iterations
+                or on_iteration is not None
+                or torch.is_anomaly_enabled()
+            )
+            while pending and (need_sync or len(pending) > 1):
+                it_i, t_i, cam_i, metrics_i = pending.pop(0)
+                m = metrics_i["packed"].cpu().numpy()
+                if m[3] > 0:
+                    # step it_i overflowed and changed nothing: its camera goes
+                    # back on the stack; grow unless this burst already grew
+                    cam_stack.append(cam_i)
+                    if it_i > stale_ovf_cutoff:
+                        overflow_discards += 1
+                        slack = raster.instance_slack * 2.0
+                        print(f"[it {it_i}] instance buffer overflow — step was a "
+                              f"device-side no-op; instance_slack -> {slack} "
+                              f"({overflow_discards} consecutive)")
+                        raster = dataclasses.replace(raster, instance_slack=slack)
+                        stale_ovf_cutoff = iteration
+                        if overflow_discards >= MAX_OVERFLOW_DOUBLINGS:
+                            raise RuntimeError(
+                                "instance-buffer overflow persisted across 4 slack "
+                                "doublings — aborting instead of silently losing steps. "
+                                "Raise instance_slack or reduce resolution.")
+                    continue
+                overflow_discards = 0
+                loss = float(m[0])
+                ema_loss = 0.4 * loss + 0.6 * ema_loss
+                last_m = m
+                max_demand = max(max_demand, int(m[4]))
+                if tb_writer is not None:
+                    tb_writer.add_scalar("train_loss_patches/l1_loss", float(m[1]), it_i)
+                    tb_writer.add_scalar("train_loss_patches/total_loss", loss, it_i)
+                    tb_writer.add_scalar("total_points", int(m[5]), it_i)
+                    tb_writer.add_scalar("iter_time", (time.time() - t_i) * 1000.0, it_i)
 
-        # grow the slack at 100-iteration boundaries once demand passes 70%
-        # of the buffer; shrink it every 500 when demand fell below 30%
-        if iteration % 100 == 0:
-            cap_now = int(raster.instance_slack * state.model.capacity)
-            new_slack = None
-            if max_demand > 0.7 * cap_now:
-                new_slack = raster.instance_slack * 1.5
-            elif iteration % 500 == 0 and 0 < max_demand < 0.3 * cap_now:
-                new_slack = max(2.2 * max_demand / state.model.capacity, 2.0)
-                if new_slack >= raster.instance_slack:
-                    new_slack = None
-            if new_slack is not None:
-                print(f"[it {iteration}] instance demand {max_demand} vs cap "
-                      f"{cap_now}: instance_slack -> {new_slack:.1f}")
-                raster = dataclasses.replace(raster, instance_slack=new_slack)
-            if iteration % 500 == 0:
-                max_demand = 0  # a windowed maximum, so the slack can shrink
+            # grow the slack at 100-iteration boundaries once demand passes 70%
+            # of the buffer; shrink it every 500 when demand fell below 30%
+            if iteration % 100 == 0:
+                cap_now = int(raster.instance_slack * state.model.capacity)
+                new_slack = None
+                if max_demand > 0.7 * cap_now:
+                    new_slack = raster.instance_slack * 1.5
+                elif iteration % 500 == 0 and 0 < max_demand < 0.3 * cap_now:
+                    new_slack = max(2.2 * max_demand / state.model.capacity, 2.0)
+                    if new_slack >= raster.instance_slack:
+                        new_slack = None
+                if new_slack is not None:
+                    print(f"[it {iteration}] instance demand {max_demand} vs cap "
+                          f"{cap_now}: instance_slack -> {new_slack:.1f}")
+                    raster = dataclasses.replace(raster, instance_slack=new_slack)
+                if iteration % 500 == 0:
+                    max_demand = 0  # a windowed maximum, so the slack can shrink
 
-        do_grow = iteration % 100 == 0 and int(last_m[5]) > 0.9 * state.model.capacity
-        do_densify = (opt.densify_from_iter < iteration < opt.densify_until_iter
-                      and iteration % opt.densification_interval == 0)
-        do_reset = iteration < opt.densify_until_iter and (
-            iteration % opt.opacity_reset_interval == 0
-            or (model_cfg.white_background and iteration == opt.densify_from_iter)
-        )
-        if do_grow:
-            new_cap = int(state.model.capacity * 1.5)
-            print(f"[it {iteration}] growing capacity {state.model.capacity} -> {new_cap}")
-            state = grow_train_state(state, new_cap)
-        if do_densify:
-            limit = 20 if iteration > opt.opacity_reset_interval else 0
-            state, dstats = densify_step(state, generator, opt=opt, max_screen_size=limit)
-            if int(dstats["dropped"]) > 0:
-                state = grow_train_state(state, int(state.model.capacity * 1.5))
-        if do_reset:
-            state = opacity_reset_step(state)
-        if do_densify:
-            # re-probe demand after each densify wave, growing in 1.25x steps
-            est = estimate_instance_slack(state, train_cams, raster, num_probe=2,
-                                          headroom=1.5)
-            if est > raster.instance_slack:
-                est = max(est, raster.instance_slack * 1.25)
-                print(f"[it {iteration}] densify re-probe: instance_slack -> {est:.1f}")
-                raster = dataclasses.replace(raster, instance_slack=est)
+            do_grow = iteration % 100 == 0 and int(last_m[5]) > 0.9 * state.model.capacity
+            do_densify = (opt.densify_from_iter < iteration < opt.densify_until_iter
+                          and iteration % opt.densification_interval == 0)
+            do_reset = iteration < opt.densify_until_iter and (
+                iteration % opt.opacity_reset_interval == 0
+                or (model_cfg.white_background and iteration == opt.densify_from_iter)
+            )
+            if do_grow:
+                new_cap = int(state.model.capacity * 1.5)
+                print(f"[it {iteration}] growing capacity {state.model.capacity} -> {new_cap}")
+                state = grow_train_state(state, new_cap)
+            if do_densify:
+                limit = 20 if iteration > opt.opacity_reset_interval else 0
+                state, dstats = densify_step(state, generator, opt=opt, max_screen_size=limit)
+                if int(dstats["dropped"]) > 0:
+                    state = grow_train_state(state, int(state.model.capacity * 1.5))
+            if do_reset:
+                state = opacity_reset_step(state)
+            if do_densify:
+                # re-probe demand after each densify wave, growing in 1.25x steps
+                est = estimate_instance_slack(state, train_cams, raster, num_probe=2,
+                                              headroom=1.5)
+                if est > raster.instance_slack:
+                    est = max(est, raster.instance_slack * 1.25)
+                    print(f"[it {iteration}] densify re-probe: instance_slack -> {est:.1f}")
+                    raster = dataclasses.replace(raster, instance_slack=est)
 
-        if not quiet and iteration % 500 == 0:
-            print(f"[it {iteration}/{opt.iterations}] loss={ema_loss:.5f} "
-                  f"gaussians={int(last_m[5])} inst={int(last_m[4])} "
-                  f"({time.time() - t_start:.0f}s)")
+            if not quiet and iteration % 500 == 0:
+                print(f"[it {iteration}/{opt.iterations}] loss={ema_loss:.5f} "
+                      f"gaussians={int(last_m[5])} inst={int(last_m[4])} "
+                      f"({time.time() - t_start:.0f}s)")
 
-        if on_iteration is not None:
-            on_iteration(iteration, state, metrics)
+            if on_iteration is not None:
+                on_iteration(iteration, state, metrics)
 
-        if iteration in test_iterations:
-            report_psnr(scene, state, raster, model_cfg, iteration, tb_writer=tb_writer,
-                        first_report=iteration == min(test_iterations, default=iteration))
+            if iteration in test_iterations:
+                report_psnr(scene, state, raster, model_cfg, iteration, tb_writer=tb_writer,
+                            first_report=iteration == min(test_iterations, default=iteration))
 
-        if iteration in save_iterations:
-            print(f"\n[ITER {iteration}] Saving Gaussians")
-            scene.save(iteration, state.model, state.exposures)
-            if model_cfg.model_path:
-                save_raster_state(model_cfg.model_path, raster, state.model.capacity)
+            if iteration in save_iterations:
+                print(f"\n[ITER {iteration}] Saving Gaussians")
+                scene.save(iteration, state.model, state.exposures)
+                if model_cfg.model_path:
+                    save_raster_state(model_cfg.model_path, raster, state.model.capacity)
 
-        if iteration in checkpoint_iterations:
-            print(f"\n[ITER {iteration}] Saving Checkpoint")
-            save_checkpoint(os.path.join(model_cfg.model_path, f"chkpnt{iteration}.pth"),
-                            state, iteration)
+            if iteration in checkpoint_iterations:
+                print(f"\n[ITER {iteration}] Saving Checkpoint")
+                save_checkpoint(os.path.join(model_cfg.model_path, f"chkpnt{iteration}.pth"),
+                                state, iteration)
+    finally:
+        if viewer is not None:
+            viewer.close()
     return state
 
 
@@ -410,6 +428,29 @@ def render_camera(
         exposure = state.exposures[camera.exposure_idx]
     image, out, _ = render_view(state.model, camera, raster, bg, exposure)
     return image, out
+
+
+
+@torch.no_grad()
+def render_custom_cam(state: TrainState, cam, bg, scale_modifier: float = 1.0,
+                      raster: Optional[RasterizeConfig] = None) -> torch.Tensor:
+    """The viewer's render of any ``CameraParams``: (3, H, W).  While the
+    frame overflows the instance buffer, doubles the slack and renders
+    again; past slack 512 it returns the overflowed frame instead of
+    raising, since a viewer frame is only looked at."""
+    from gaussian_splatting_torch.ops.rasterize import render
+    from gaussian_splatting_torch.render import MAX_EVAL_SLACK
+
+    means, scales, quats, opac, sh = state.model.activated_params()
+    bg = torch.as_tensor(bg, dtype=torch.float32, device=means.device)
+    cfg = raster if raster is not None else RasterizeConfig()
+    while True:
+        out = render(means, scales, quats, opac, sh, cam, bg,
+                     sh_degree=state.model.max_sh_degree,
+                     scale_modifier=float(scale_modifier), inference=True, cfg=cfg)
+        if not bool(out.overflow) or cfg.instance_slack > MAX_EVAL_SLACK:
+            return out.image
+        cfg = dataclasses.replace(cfg, instance_slack=cfg.instance_slack * 2.0)
 
 
 @torch.no_grad()

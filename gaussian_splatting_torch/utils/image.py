@@ -86,7 +86,11 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
 
 
+def mse(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """Mean squared error over every value."""
+    return torch.mean((img1 - img2) ** 2)
+
+
 def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     """Peak signal-to-noise ratio in dB for images in [0, 1]."""
-    mse = torch.mean((img1 - img2) ** 2)
-    return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse(img1, img2)))

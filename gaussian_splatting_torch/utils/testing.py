@@ -2,13 +2,20 @@
 
 ``random_scene`` makes the same numpy draws, in the same order, as
 ``gaussian_splatting_tpu/utils/testing.py::random_scene``, so one seed gives
-both packages the same Gaussians and camera.
+both packages the same Gaussians and camera.  ``viewer_message`` and
+``ViewerClient`` play the SIBR viewer's side of ``viewer.network_gui``;
+``random_lpips_weights`` and ``analytic_test_rays`` make the evaluation
+suite's inputs.
 """
 
 from __future__ import annotations
 
+import json
+import math
+import socket
 import struct
-from typing import Dict, NamedTuple
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -303,3 +310,101 @@ def write_images_binary_with_tracks(path: str, images: Dict) -> None:
             if n:
                 rec["x"], rec["y"], rec["id"] = im.xys[:, 0], im.xys[:, 1], im.point3d_ids
             f.write(struct.pack("<Q", n) + rec.tobytes())
+
+
+def viewer_message(cam: CameraParams, *, train: bool, scaling_modifier: float = 1.0,
+                   keep_alive: bool = False) -> dict:
+    """The SIBR viewer's request for ``cam``: its matrices in the row-vector
+    convention with the client's sign flips, which the server's
+    ``_decode_camera`` undoes exactly."""
+    view = cam.viewmatrix.cpu().numpy().T.copy()
+    view[:, 1:3] *= -1
+    proj = cam.projmatrix.cpu().numpy().T.copy()
+    proj[:, 1] *= -1
+    return {
+        "resolution_x": cam.width, "resolution_y": cam.height, "train": train,
+        "fov_x": 2.0 * math.atan(cam.tan_fovx), "fov_y": 2.0 * math.atan(cam.tan_fovy),
+        "z_near": 0.01, "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+        "keep_alive": keep_alive, "scaling_modifier": scaling_modifier,
+        "view_matrix": view.ravel().tolist(),
+        "view_projection_matrix": proj.ravel().tolist(),
+    }
+
+
+class ViewerClient:
+    """A loopback viewer client: connects (retrying until ``timeout``
+    while the server is not yet listening) and sends requests, each
+    answered by a frame and the verify string."""
+
+    def __init__(self, host: str, port: int, timeout: float = 30.0):
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                self.sock = socket.create_connection((host, port), timeout=timeout)
+                return
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.01)
+
+    def _recv_exact(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            part = self.sock.recv(n - len(buf))
+            if not part:
+                raise ConnectionError("viewer server closed the connection")
+            buf += part
+        return buf
+
+    def request(self, message: dict) -> Tuple[Optional[bytes], str]:
+        """(frame: H x W x 3 uint8 bytes or None, verify string)."""
+        data = json.dumps(message).encode("utf-8")
+        self.sock.sendall(len(data).to_bytes(4, "little") + data)
+        n = message["resolution_x"] * message["resolution_y"] * 3
+        frame = self._recv_exact(n) if n else None
+        verify = self._recv_exact(int.from_bytes(self._recv_exact(4), "little"))
+        return frame, verify.decode("ascii")
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+# torchvision's VGG16 convolutions (features.N: in, out channels) and the
+# LPIPS heads' widths
+VGG16_CHANNELS = {
+    0: (3, 64), 2: (64, 64),
+    5: (64, 128), 7: (128, 128),
+    10: (128, 256), 12: (256, 256), 14: (256, 256),
+    17: (256, 512), 19: (512, 512), 21: (512, 512),
+    24: (512, 512), 26: (512, 512), 28: (512, 512),
+}
+LPIPS_HEAD_CHANNELS = (64, 128, 256, 512, 512)
+
+
+def random_lpips_weights(rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """LPIPS weights of the real shapes (14.7M parameters) drawn as the
+    JAX package's LPIPS test draws them; only the math can be checked with
+    them, they measure no quality."""
+    raw = {}
+    for lid, (cin, cout) in VGG16_CHANNELS.items():
+        raw[f"features.{lid}.weight"] = rng.normal(0, 0.08, (cout, cin, 3, 3)).astype(np.float32)
+        raw[f"features.{lid}.bias"] = rng.normal(0, 0.05, (cout,)).astype(np.float32)
+    for si, c in enumerate(LPIPS_HEAD_CHANNELS):
+        raw[f"lin{si}.model.1.weight"] = np.abs(rng.normal(0, 0.3, (1, c, 1, 1))).astype(np.float32)
+    return raw
+
+
+def analytic_test_rays(n: int = 4096, seed: int = 3) -> Tuple[np.ndarray, np.ndarray]:
+    """(eye (3,), unit directions (n, 3)), float64: the rays the JAX
+    package's shader-parity test traces, from an orbit-like eye through a
+    spread of directions that mixes hits and misses."""
+    rng = np.random.default_rng(seed)
+    eye = np.array([2.6, 1.7, -2.9])
+    d = np.stack([rng.uniform(-0.45, 0.45, n), rng.uniform(-0.45, 0.2, n), np.ones(n)], axis=1)
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
+    right /= np.linalg.norm(right)
+    upv = np.cross(fwd, right)
+    d = d[:, 0:1] * right + d[:, 1:2] * upv + d[:, 2:3] * fwd
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return eye, d

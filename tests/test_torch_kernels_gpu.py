@@ -1,6 +1,7 @@
 """Card-only tests: each hand-written CUDA kernel against its plain PyTorch
 twin at a small size, on the card, and the render's gradients through the
-kernels against the all-twin path.
+kernels against the all-twin path; then the evaluation suite's LPIPS and
+analytic shader on the card against the CPU.
 
 They skip without a card.  On a machine with one (which need not have JAX;
 ``--noconftest`` keeps the JAX-pinning conftest out):
@@ -19,13 +20,17 @@ from gaussian_splatting_torch.ops import expand as ex
 from gaussian_splatting_torch.ops import instances as inst
 from gaussian_splatting_torch.ops import segreduce as sr
 from gaussian_splatting_torch.ops import untile as ut
+from gaussian_splatting_torch.ops.lpips import make_lpips
 from gaussian_splatting_torch.ops.preprocess import preprocess
 from gaussian_splatting_torch.ops.rasterize import _render, blend_fields, expansion_order, render
+from gaussian_splatting_torch.utils.synthetic_dataset import _analytic_scene, shade_analytic
 from gaussian_splatting_torch.utils.testing import (
     EXPAND_EDGE_CASES,
     SEGREDUCE_EDGE_CASES,
     SEGSCAN_EDGE_CASES,
+    analytic_test_rays,
     expand_edge_table,
+    random_lpips_weights,
     random_scene,
     segreduce_edge_table,
     segscan_edge_table,
@@ -566,3 +571,40 @@ def test_blend_kernels_raise_on_unaligned_fields(cuda):
     ct = torch.zeros((1, 256, bl.CT_COLS), device=cuda)
     with pytest.raises(ValueError):
         bl.blend_backward(owner, starts, ends, fields, packed, ct, grid_x=1)
+
+
+# The evaluation suite on the card: no kernel of its own, but the port's
+# LPIPS convolutions and the analytic shader must give on the card what they
+# give on the CPU.
+TOL_LPIPS_REL = 1e-4
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (1080, 1920)])
+def test_lpips_on_the_card_matches_the_cpu(cuda, tmp_path, shape):
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "lpips_rand.npz")
+    np.savez(path, **random_lpips_weights(rng))
+    a = rng.uniform(0, 1, shape + (3,)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.08, a.shape), 0, 1).astype(np.float32)
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    on_card = make_lpips(path, device=cuda)(a, b)
+    on_cpu = make_lpips(path, device="cpu")(a, b)
+    assert on_cpu > 0
+    assert abs(on_card - on_cpu) <= TOL_LPIPS_REL * on_cpu
+
+
+@pytest.mark.parametrize("name", ["spheres", "thicket", "glossy"])
+def test_float32_shader_on_the_card_matches_float64_on_the_cpu(cuda, name):
+    """JAX's own tolerance for its float32 shader against its float64 one."""
+    spheres, plane = _analytic_scene(0, name)
+    eye, d = analytic_test_rays()
+    rgb64, a64, t64 = (x.numpy() for x in shade_analytic(
+        torch.from_numpy(eye), torch.from_numpy(d), spheres, plane, dtype=torch.float64))
+    out = shade_analytic(torch.from_numpy(eye).to(cuda), torch.from_numpy(d).to(cuda),
+                         spheres, plane)
+    assert out[0].dtype == torch.float32 and out[0].is_cuda
+    rgb, a, t = (x.double().cpu().numpy() for x in out)
+    np.testing.assert_array_equal(a, a64)
+    hit = a64 > 0
+    np.testing.assert_allclose(t[hit], t64[hit], rtol=2e-3, atol=2e-3)
+    assert np.quantile(np.abs(rgb - rgb64).max(axis=1), 0.97) < 0.02
