@@ -82,6 +82,18 @@ Phases (any failure raises, and the script exits non-zero):
               iterations 1 and 500; ``metrics`` with LPIPS weights drawn from
               --seed (finite scores, a 1 dB PSNR gain); LPIPS on the card
               against the CPU.  Prints each step's wall time
+ 18. multi-GPU      gshard at n = 4 ranks emulated in one process on the bench
+              scene: each stripe through K1-K6 bitwise against the twins
+              (forward, and the backward of sum(colour) + sum(inverse depth))
+              and the stitched image within 3e-5 of the single render, with
+              the records routed and each stripe's instances; on an NCCL
+              world of one, 3 steps each of train_step, dp_train_step (within
+              1e-6) and gshard_train_step (within 2e-4; after its first step
+              the gradients, densification statistics and means too); the
+              training CLI with --parallel gshard (110 iterations, through the
+              densify at 100) and --parallel dp (30) in subprocesses on the
+              CLI scene: K1-K6 launch, rank 0's files,
+              finite losses, the steady iteration time beside phase 13's
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a card: without one it exits non-zero
 before printing any result.
@@ -1550,10 +1562,12 @@ class LoopProbe:
     capacity growth)."""
 
     BOUNDARIES = ("densify_step", "opacity_reset_step", "report_psnr", "save_checkpoint",
-                  "estimate_instance_slack", "grow_train_state")
+                  "estimate_instance_slack", "grow_train_state", "gather_state", "shard_state")
 
-    def __init__(self, profile_iteration=None):
+    def __init__(self, profile_iteration=None, step_name="train_step"):
         self.profile_iteration = profile_iteration
+        self.step_name = step_name
+        self.packed = []  # each step's packed metrics (read after the run)
         self.starts = []
         self.first_step = None
         self.boundaries = []  # (iteration, name, ms)
@@ -1570,9 +1584,10 @@ class LoopProbe:
         from gaussian_splatting_torch.scene import Scene
         from gaussian_splatting_torch.train import loop
 
-        self._saved = [(loop, n, getattr(loop, n)) for n in ("train_step",) + self.BOUNDARIES]
+        self._saved = [(loop, n, getattr(loop, n))
+                       for n in (self.step_name,) + self.BOUNDARIES]
         self._saved.append((Scene, "save", Scene.save))
-        real_step = loop.train_step
+        real_step = getattr(loop, self.step_name)
         wrapped = ((ut, "retile"), (sr, "segment_reduce_rows"))
         real = {name: getattr(module, name) for module, name in wrapped}
 
@@ -1600,8 +1615,11 @@ class LoopProbe:
                     for module, name in wrapped:
                         setattr(module, name, real[name])
                 self.profiled = held[0]
+                self.packed.append(held[0][1]["packed"])
                 return held[0]
-            return real_step(state, *args, **kw)
+            result = real_step(state, *args, **kw)
+            self.packed.append(result[1]["packed"])
+            return result
 
         def timed(name, fn):
             def wrapper(*args, **kw):
@@ -1614,7 +1632,7 @@ class LoopProbe:
                 return result
             return wrapper
 
-        loop.train_step = train_step
+        setattr(loop, self.step_name, train_step)
         for name in self.BOUNDARIES:
             setattr(loop, name, timed(name, getattr(loop, name)))
         Scene.save = timed("snapshot", Scene.save)
@@ -1732,7 +1750,7 @@ def train_cli_phase(root, scene_dir, seed, device="cuda"):
         print(f"  render CLI view {r['index']}: {r['seconds'] * 1e3:.1f} ms wall, slot demand "
               f"{r['num_instances']}, retries {r['retries']}")
     psnr_gain(scene_dir, out, device)
-    return launches
+    return launches, statistics.mean(steady)
 
 
 def cli_kernel_times(probe):
@@ -2053,8 +2071,8 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _past_deadline():
-    print(f"chip_smoke: the evaluation phase passed its {EVAL_DEADLINE_S:.0f} s deadline",
+def _past_deadline(what, seconds):
+    print(f"chip_smoke: the {what} phase passed its {seconds:.0f} s deadline",
           file=sys.stderr, flush=True)
     os._exit(1)
 
@@ -2116,7 +2134,8 @@ def evaluation_phase(root, seed, device="cuda"):
 
     phase("evaluation")
     t_phase = time.perf_counter()
-    watchdog = threading.Timer(EVAL_DEADLINE_S, _past_deadline)
+    watchdog = threading.Timer(EVAL_DEADLINE_S, _past_deadline,
+                               ("evaluation", EVAL_DEADLINE_S))
     watchdog.daemon = True
     watchdog.start()
     width, height = EVAL_SIZE
@@ -2308,6 +2327,365 @@ def evaluation_phase(root, seed, device="cuda"):
     return launches
 
 
+MGPU_RANKS = 4  # gshard's n, emulated in one process at full width
+MGPU_STEPS = 3  # of each step function at a world of one
+MGPU_CLI_ITERATIONS = {"gshard": 110, "dp": 30}  # gshard through its densify at 100
+MGPU_DEADLINE_S = 540.0  # the whole phase; past it the script exits non-zero
+TOL_STITCH = 3e-5  # JAX tests/test_parallel.py:39
+TOL_DP_LOSS_REL = 1e-6
+TOL_GSHARD_LOSS_REL = 2e-4  # JAX tests/test_parallel.py:199
+
+
+def multi_gpu_phase(root, model_dir, scene_dir, seed, single_steady_ms, device="cuda"):
+    """gshard and dp at full width.  (1) n = MGPU_RANKS ranks of gshard
+    emulated in one process on the bench scene: each stripe through K1-K6
+    against the twins (forward, and the backward of sum(colour) + sum(inverse
+    depth)), bitwise; the stitched image against the single render.  (2) On
+    an NCCL world of one: MGPU_STEPS steps each of ``train_step``,
+    ``dp_train_step`` and ``gshard_train_step`` from one state (the fixture
+    model with seeded noise).  (3) The training CLI with ``--parallel gshard``
+    and ``--parallel dp`` in subprocesses on the CLI scene; their launch
+    counts are the phase's.  Returns those counts."""
+    import threading
+
+    import torch
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch.ops import instances as inst
+    from gaussian_splatting_torch.ops.preprocess import clip, preprocess
+    from gaussian_splatting_torch.ops.rasterize import render
+    from gaussian_splatting_torch.parallel.gshard import stripe_from_records
+    from gaussian_splatting_torch.utils.testing import emulated_exchange, random_scene
+
+    phase("multi-GPU")
+    t_phase = time.perf_counter()
+    watchdog = threading.Timer(MGPU_DEADLINE_S, _past_deadline, ("multi-GPU", MGPU_DEADLINE_S))
+    watchdog.daemon = True
+    watchdog.start()
+    n = MGPU_RANKS
+    s = random_scene(NUM_GAUSSIANS, sh_degree=SH_DEGREE, width=WIDTH, height=HEIGHT, seed=0,
+                     spread=2.0, scale_range=(0.0025, 0.012), cam_distance=4.0,
+                     bg=(0.1, 0.2, 0.3), device=device)
+    arrays = (s.means3d, s.scales, s.quats, s.opacities, s.sh)
+    with torch.no_grad():
+        proj = preprocess(*arrays, s.cam, sh_degree=SH_DEGREE)
+        demand = int(inst.build_table(proj)[1])
+        touched = int((proj.valid & (proj.tiles_touched > 0)).sum())
+        single = render(*arrays, s.cam, s.bg, sh_degree=SH_DEGREE, inference=True,
+                        capacity=-(-int(demand * 1.05) // 128) * 128)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        received, kw, routed, overflow = emulated_exchange(*arrays, s.cam, n=n,
+                                                           sh_degree=SH_DEGREE)
+        torch.cuda.synchronize()
+        exchange_ms = (time.perf_counter() - t0) * 1e3
+    if overflow or bool(single.overflow):
+        raise RuntimeError("the emulated exchange or the single render overflowed")
+    # every stripe's demand is at most the whole view's plus one sentinel a
+    # received row
+    kw["capacity"] = -(-(int(demand * 1.05) + received[0].shape[0] + 1024) // 512) * 512
+    print(f"bench scene, {n} ranks emulated: {NUM_GAUSSIANS // n} Gaussians a shard, "
+          f"{kw['grid_y_local']} tile rows a stripe, cap_x {received[0].shape[0] // n}, "
+          f"stripe capacity {kw['capacity']}; projection, packing and routing of all "
+          f"shards {exchange_ms:.3f} ms (synchronised)")
+    into = [sum(routed[src][d] for src in range(n)) for d in range(n)]
+    print(f"records routed (source x destination): {routed}; into each stripe {into}; "
+          f"{sum(into)} records for {touched} Gaussians with tiles: "
+          f"{100.0 * (sum(into) - touched) / touched:.2f}% cross a stripe boundary")
+    stripes = []
+    for d, flat in enumerate(received):
+        outs = []
+        for kernels in (True, False):
+            leaf = flat.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            color, invd, ovf, ninst = stripe_from_records(leaf, d=d, bg_color=s.bg,
+                                                          kernels=kernels, **kw)
+            (grad,) = torch.autograd.grad(color.sum() + invd.sum(), leaf)
+            torch.cuda.synchronize()
+            outs.append((color.detach(), invd.detach(), grad, bool(ovf), int(ninst),
+                         (time.perf_counter() - t0) * 1e3))
+        (ck, ik, gk, ovf, ninst, ms), (cp, ip, gp, _, _, plain_ms) = outs
+        same = [torch.equal(a, b) for a, b in ((ck, cp), (ik, ip), (gk, gp))]
+        print(f"  stripe {d}: {into[d]} records, {ninst} instances (slots, sentinels "
+              f"included); forward + backward {ms:.3f} ms through K1-K6, {plain_ms:.3f} ms "
+              f"through the twins; bitwise equal: colour {same[0]}, inverse depth "
+              f"{same[1]}, record gradients {same[2]}")
+        if ovf or not all(same):
+            raise RuntimeError(f"stripe {d} overflowed or disagrees with its twins")
+        stripes.append(ck)
+    image = clip(torch.cat(stripes, dim=1)[:, :HEIGHT], 0.0, 1.0)
+    err = float((image - single.image).abs().max())
+    print(f"stitched image vs the single render: max |diff| {err:.3e} (tolerance "
+          f"{TOL_STITCH}); {card()}")
+    if not err <= TOL_STITCH:
+        raise RuntimeError("the stitched stripes disagree with the single render")
+    del received, stripes, outs, single, proj, s, arrays
+    torch.cuda.empty_cache()
+
+    world_of_one_steps(model_dir, seed, device)
+
+    launches = {k: 0 for k in _kernels.KERNELS}
+    for mode, iterations in MGPU_CLI_ITERATIONS.items():
+        remaining = MGPU_DEADLINE_S - (time.perf_counter() - t_phase) - 10.0
+        report = parallel_cli(root, scene_dir, seed, mode, iterations, remaining, device)
+        for k, v in report["launches"].items():
+            launches[k] += v
+        print(f"  steady iteration: --parallel {mode} {report['steady_mean_ms']:.3f} ms mean "
+              f"(median {report['steady_median_ms']:.3f}) over {report['steady_count']}; "
+              f"single-device train CLI phase {single_steady_ms:.3f} ms mean; {card()}")
+    _check_launches(launches, _kernels.TRAIN_KERNELS, "the parallel CLI runs")
+    print(f"launches during the parallel CLI runs: {launches}")
+    watchdog.cancel()
+    print(f"multi-GPU phase: {time.perf_counter() - t_phase:.3f} s wall")
+    return launches
+
+
+def loss_order_step(state, cam, batch, *, opt, raster):
+    """The witness for gshard's step: ``train_step`` with its photometric
+    loss summed in another order, L1 and SSIM as sums weighted by 1/(3HW)
+    (the form gshard's stripe loss takes) instead of means.  The render,
+    the backward and Adam are ``train_step``'s, so its gaps to
+    ``train_step`` are those the loss's summation order alone opens."""
+    import torch
+
+    from gaussian_splatting_torch.ops.losses import fused_ssim_weighted_sum
+    from gaussian_splatting_torch.ops.rasterize import render
+    from gaussian_splatting_torch.train.step import apply_gradients, step_metrics
+
+    model = state.model
+    leaves = model.params()
+    dev = model.means3d.device
+    tap = torch.zeros((model.capacity, 2), dtype=torch.float32, device=dev, requires_grad=True)
+    denom = 3.0 * cam.height * cam.width
+    with torch.enable_grad():
+        out = render(*model.activated_params(), cam, batch.bg_color,
+                     sh_degree=model.max_sh_degree, cfg=raster, means2d_tap=tap)
+        image = out.image * batch.alpha_mask
+        gt = batch.gt_image * batch.alpha_mask
+        weight = torch.full(image.shape[1:], 1.0 / denom, dtype=torch.float32, device=dev)
+        l1 = torch.sum(torch.abs(image - gt)) / denom
+        ssim = fused_ssim_weighted_sum(image, gt, weight)
+        loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (1.0 - ssim)
+        wrt = list(leaves.values()) + [tap]
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, grads)]
+    with torch.no_grad():
+        apply_gradients(state, dict(zip(leaves, grads[:-1])), grads[-1], None, out.radii,
+                        out.overflow, opt=opt)
+        return state, step_metrics(loss.detach(), l1.detach(), torch.zeros_like(l1),
+                                   out.overflow, out.num_instances, model.num_alive())
+
+
+def world_of_one_steps(model_dir, seed, device="cuda"):
+    """MGPU_STEPS steps each of ``train_step``, the witness
+    ``loss_order_step``, ``dp_train_step`` and ``gshard_train_step`` in
+    lockstep from copies of one state, on an NCCL world of one.  dp's losses
+    within TOL_DP_LOSS_REL (and whether every tensor is bitwise equal),
+    gshard's within TOL_GSHARD_LOSS_REL.  After every step, gshard's gaps to
+    ``train_step`` in the densification statistics and the means (the
+    largest |diff|, and the entries past JAX tests/test_parallel.py:202-217's
+    tolerances) within WITNESS_FACTOR times the witness's.  After the first
+    step, from the same parameters, also: gshard's gradients (Adam's first
+    moments, 0.1 g) within TOL_GRAD scaled, its densification statistics
+    within JAX's tolerances, and its means within JAX's 5e-4 wherever the
+    gradient is above 1e-3 of its largest."""
+    import torch
+
+    from gaussian_splatting_torch.config import OptimizationConfig
+    from gaussian_splatting_torch.parallel import collectives as coll
+    from gaussian_splatting_torch.parallel.dp import dp_train_step
+    from gaussian_splatting_torch.parallel.gshard import gshard_train_step, shard_state
+    from gaussian_splatting_torch.parallel.mesh import init_distributed, shutdown, world_size
+    from gaussian_splatting_torch.train.step import train_step
+
+    dev = init_distributed(device)
+    try:
+        print(f"a world of {world_size()} on {dev} ({torch.distributed.get_backend()})")
+        setup = train_setup(model_dir, seed, device)
+        cams, batches, raster = setup["cams"], setup["batches"], setup["raster"]
+        opt = OptimizationConfig()
+        fns = {"train_step": train_step, "loss_order_step": loss_order_step,
+               "dp_train_step": dp_train_step, "gshard_train_step": gshard_train_step}
+        states = {name: shard_state(setup["state"], 0, 1) for name in fns}  # copies
+        losses = {name: [] for name in fns}
+        for k in range(MGPU_STEPS):
+            i = k % len(cams)
+            walls = {}
+            for name, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[name], m = fn(states[name], cams[i].cam, batches[i], opt=opt,
+                                     raster=raster)
+                vals = m["packed"].tolist()
+                walls[name] = (time.perf_counter() - t0) * 1e3
+                if vals[3]:
+                    raise RuntimeError(f"{name} step {k + 1} overflowed")
+                losses[name].append(vals[0])
+            print(f"  step {k + 1} (view {i}): wall "
+                  f"{', '.join(f'{n} {w:.3f}' for n, w in walls.items())} ms (synchronised)")
+            gaps = {name: step_gaps(states[name], states["train_step"])
+                    for name in ("gshard_train_step", "loss_order_step")}
+            witness_checks(k + 1, gaps["gshard_train_step"], gaps["loss_order_step"])
+            if k == 0:
+                first_step_checks(states["gshard_train_step"], states["train_step"],
+                                  states["loss_order_step"], gaps["gshard_train_step"])
+        for name, tol in (("dp_train_step", TOL_DP_LOSS_REL),
+                          ("gshard_train_step", TOL_GSHARD_LOSS_REL)):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses[name], losses["train_step"]))
+            ref, got = states["train_step"].tensors(), states[name].tensors()
+            bitwise = (losses[name] == losses["train_step"]
+                       and all(torch.equal(got[key], ref[key]) for key in ref))
+            print(f"  {name} vs train_step: losses {losses[name]} against "
+                  f"{losses['train_step']}, max relative difference {rel:.3e} (tolerance "
+                  f"{tol}); losses and every state tensor bitwise equal: {bitwise}")
+            if not rel <= tol:
+                raise RuntimeError(f"{name} disagrees with train_step")
+        ref, got = states["loss_order_step"].tensors(), states["gshard_train_step"].tensors()
+        print(f"  gshard_train_step vs the witness: losses {losses['loss_order_step']}, every "
+              f"state tensor bitwise equal: {all(torch.equal(got[k], ref[k]) for k in ref)}")
+        send = torch.randn((1, 1 << 20, 16), device=dev)
+        all_to_all_ms = cuda_ms(lambda: coll.all_to_all(send))
+        print(f"  all_to_all of 2^20 records of 16 floats at a world of one: "
+              f"{all_to_all_ms:.4f} ms (CUDA events); {card()}")
+    finally:
+        shutdown()
+
+
+WITNESS_FACTOR = 4  # gshard's gaps to train_step, against the witness's
+GAP_TOLS = (("denom", 0.0, 1e-6), ("xyz_grad_accum", 2e-2, 1e-5),  # (key, rtol, atol):
+            ("means3d", 0.0, 5e-4))  # JAX tests/test_parallel.py:202-217
+
+
+def step_gaps(got_state, ref_state):
+    """{key: (largest |diff|, entries past GAP_TOLS)} of two states."""
+    got, ref = got_state.tensors(), ref_state.tensors()
+    out = {}
+    for key, rtol, atol in GAP_TOLS:
+        diff = (got[key] - ref[key]).detach().abs()
+        out[key] = (float(diff.max()), int((diff - rtol * ref[key].abs() > atol).sum()))
+    return out
+
+
+def witness_checks(step, gshard_gaps, witness_gaps):
+    """gshard's gaps to ``train_step`` within WITNESS_FACTOR times the
+    witness's, in the largest |diff| and in the entries past JAX's
+    tolerances."""
+    print(f"  step {step}: gaps to train_step, largest |diff| and entries past JAX's "
+          f"tolerance, gshard | witness: " + "; ".join(
+              f"{key} {gshard_gaps[key][0]:.3e}, {gshard_gaps[key][1]} | "
+              f"{witness_gaps[key][0]:.3e}, {witness_gaps[key][1]}" for key, _, _ in GAP_TOLS))
+    for key, _, _ in GAP_TOLS:
+        for got, bound in zip(gshard_gaps[key], witness_gaps[key]):
+            if not got <= WITNESS_FACTOR * bound:
+                raise RuntimeError(f"step {step}: gshard's {key} is further from train_step's "
+                                   f"than {WITNESS_FACTOR}x the witness's")
+
+
+def first_step_checks(got_state, ref_state, witness_state, gaps):
+    """The checks ``world_of_one_steps`` makes after the first step."""
+    import torch
+
+    from gaussian_splatting_torch.models.gaussians import PARAM_NAMES
+
+    for key in ("denom", "xyz_grad_accum"):
+        if gaps[key][1]:
+            raise RuntimeError(f"gshard's {key} disagrees with train_step's")
+    worst = 0.0
+    for name in PARAM_NAMES:
+        g_ref, g_got = ref_state.adam.mu[name], got_state.adam.mu[name]
+        worst = max(worst, float((g_got - g_ref).abs().max() / (g_ref.abs().max() + 1e-30)))
+    print(f"  step 1: gshard's gradients (Adam's first moments) vs train_step's: max "
+          f"scaled diff {worst:.3e} (tolerance {TOL_GRAD})")
+    if not worst <= TOL_GRAD:
+        raise RuntimeError("gshard's gradients disagree with train_step's")
+    g = ref_state.adam.mu["means3d"]
+    flips = {name: int((torch.sign(s.adam.mu["means3d"]) != torch.sign(g)).sum())
+             for name, s in (("gshard", got_state), ("witness", witness_state))}
+    diff = (got_state.model.means3d - ref_state.model.means3d).detach().abs()
+    solid = g.abs() > 1e-3 * g.abs().max()
+    print(f"  step 1: means3d gradients whose sign differs from train_step's: gshard "
+          f"{flips['gshard']}, witness {flips['witness']}; gshard's means vs train_step's: "
+          f"max |diff| {float(diff[solid].max()):.3e} over {int(solid.sum())} coordinates "
+          f"with solid gradients (atol 5e-4), {int((diff[~solid] > 5e-4).sum())} of the "
+          f"{int((~solid).sum())} others past it")
+    if not float(diff[solid].max()) <= 5e-4:
+        raise RuntimeError("gshard's means disagree with train_step's")
+
+
+def parallel_cli(root, scene_dir, seed, mode, iterations, timeout_s, device="cuda"):
+    """``python -m gaussian_splatting_torch.train --parallel <mode>`` in a
+    subprocess (``cli_child``), so its process group ends with it; checks
+    the files rank 0 writes, the launches and the losses, and returns the
+    child's report."""
+    out = os.path.join(root, f"parallel_{mode}")
+    argv = ["-s", scene_dir, "-m", out, "-r", "1", "--eval",
+            "--densify_from_iter", "50", "--densification_interval", "100",
+            "--densify_until_iter", "301", "--opacity_reset_interval", "200",
+            "--iterations", str(iterations), "--test_iterations", str(iterations),
+            "--checkpoint_iterations", str(iterations), "--disable_viewer",
+            "--seed", str(seed), "--parallel", mode, "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-child", mode,
+                           "--", *argv], capture_output=True, text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    keep = ("[parallel]", "instance_slack", "capacity", "overflow", "Evaluating", "densify",
+            "boundary", "Training complete")
+    print(f"--parallel {mode}, {iterations} iterations: exit code {proc.returncode}, "
+          f"{wall:.3f} s wall (process start and scene load included)")
+    for ln in lines:
+        if any(k in ln for k in keep):
+            print(f"  | {ln.strip()}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"--parallel {mode} failed:\n{proc.stdout[-4000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    report = json.loads([ln for ln in lines if ln.startswith("CLI_CHILD ")][-1][10:])
+    if report["steps"] != iterations or report["first_step"] != 0:
+        raise RuntimeError(f"--parallel {mode}: {report['steps']} steps from "
+                           f"{report['first_step']}")
+    if not all(math.isfinite(x) for x in report["losses"]):
+        raise RuntimeError(f"--parallel {mode}: a loss is not finite")
+    print(f"  losses {report['losses'][0]:.6f} -> {report['losses'][-1]:.6f}, all finite; "
+          f"launches {report['launches']}")
+    _check_launches(report["launches"], ("expand", "blend_forward", "untile", "retile",
+                                         "blend_backward", "segment_reduce"),
+                    f"--parallel {mode}")
+    expected = ["cfg_args.json", "opt_args.json", "pipe_args.json", "cameras.json",
+                "input.ply", "raster_state.json", "exposure.json", f"chkpnt{iterations}.pth",
+                os.path.join("point_cloud", f"iteration_{iterations}", "point_cloud.ply")]
+    absent = [f for f in expected if not os.path.exists(os.path.join(out, f))]
+    if absent:
+        raise RuntimeError(f"--parallel {mode}: rank 0 did not write {absent}")
+    return report
+
+
+def cli_child(mode, argv):
+    """The child of ``parallel_cli``: the training CLI under ``LoopProbe``,
+    then one line ``CLI_CHILD {json}`` with its launches, steps, losses and
+    steady iteration times."""
+    import statistics
+
+    import torch
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch.train import cli
+
+    with LoopProbe(step_name=f"{mode}_train_step") as probe:
+        cli.main(argv)
+        torch.cuda.synchronize()
+    for it, name, ms in probe.boundaries:
+        print(f"boundary at iteration {it}: {name} {ms:.3f} ms wall (synchronised)")
+    steady = probe.steady_ms()
+    print("CLI_CHILD " + json.dumps({
+        "launches": dict(_kernels.launches), "steps": len(probe.starts),
+        "first_step": probe.first_step,
+        "losses": [float(p[0]) for p in probe.packed],
+        "steady_mean_ms": statistics.mean(steady), "steady_median_ms": statistics.median(steady),
+        "steady_count": len(steady),
+    }))
+
+
 def psnr_gain(scene_dir, out, device="cuda"):
     """Mean test-view PSNR of the iteration-300 snapshot against that of the
     initial create_from_pcd model, both rendered against the test PNGs."""
@@ -2406,7 +2784,11 @@ def add_launches(rows, launches):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--cli-child", choices=["dp", "gshard"], help=argparse.SUPPRESS)
+    parser.add_argument("cli_argv", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.cli_child:
+        return cli_child(args.cli_child, [a for a in args.cli_argv if a != "--"])
 
     kind, count = device_phase()
     segscan_first_lib = build_phase()
@@ -2424,13 +2806,15 @@ def main():
     del setup
     bench_phase()
     scene_dir = make_cli_scene(root, model_dir)
-    launches["train CLI"] = train_cli_phase(root, scene_dir, args.seed)
+    launches["train CLI"], cli_steady_ms = train_cli_phase(root, scene_dir, args.seed)
     launches["depth maps"] = depth_maps_phase(root, scene_dir, model_dir, args.seed)
     launches["COLMAP scene"] = colmap_scene_phase(root, scene_dir, model_dir, args.seed)
     launches["segscan"], row = segscan_phase(tctx, segscan_first_lib)
     rows.append(row)
     del tctx
     launches["evaluation"] = evaluation_phase(root, args.seed)
+    launches["multi-GPU"] = multi_gpu_phase(root, model_dir, scene_dir, args.seed,
+                                            cli_steady_ms)
     shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"kernels": add_launches(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -83,3 +83,23 @@ def train_state_from_jax(
         exp_adam=adam_state(count, {"exposures": mu}, {"exposures": nu}),
         step=_tensor(step, dev, torch.int32),
     )
+
+
+def jax_state_leaves(state) -> Dict:
+    """A JAX ``TrainState``'s leaves as numpy arrays, in the keyword
+    arguments of ``train_state_from_jax`` (read by attribute; nothing of JAX
+    is imported).  They pickle, so spawned ranks can start from them."""
+    m = state.model
+
+    def tree(t):
+        return {k: np.asarray(v) for k, v in t._asdict().items()}
+
+    return dict(
+        params=tree(m.params), aux=tree(m.aux),
+        adam=(np.asarray(state.adam.count), tree(state.adam.mu), tree(state.adam.nu)),
+        exposures=np.asarray(state.exposures),
+        exp_adam=(np.asarray(state.exp_adam.count), np.asarray(state.exp_adam.mu),
+                  np.asarray(state.exp_adam.nu)),
+        step=np.asarray(state.step), spatial_lr_scale=float(m.spatial_lr_scale),
+        sh_degree=int(m.sh_degree), max_sh_degree=m.max_sh_degree,
+    )

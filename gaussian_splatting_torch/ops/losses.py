@@ -126,6 +126,39 @@ def fused_ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     return _FusedSSIM.apply(img1, img2)
 
 
+class _FusedSSIMWeightedSum(torch.autograd.Function):
+    """``sum(ssim_map * weight)``, differentiable in ``img1`` only.  A
+    per-pixel cotangent does not commute with the blur, so the weight
+    multiplies the G-terms before the (self-adjoint) backward blur."""
+
+    @staticmethod
+    def forward(ctx, img1, img2, weight):
+        m, parts = _ssim_partials(img1[None], img2[None])
+        ctx.save_for_backward(img1[None], img2[None], weight, *parts)
+        return torch.sum(m[0] * weight[None])
+
+    @staticmethod
+    def backward(ctx, g):
+        img1, img2, weight, mu1, mu2, G1, G2, G3 = ctx.saved_tensors
+        gmap = (g * weight)[None, None]
+        blurred = _blur(torch.cat(
+            [gmap * G1, gmap * G2, gmap * G2 * mu1, gmap * G3, gmap * G3 * mu2], dim=1))
+        c = img1.shape[1]
+        b1, b2, b2m1, b3, b3m2 = (blurred[:, i * c : (i + 1) * c] for i in range(5))
+        dimg1 = b1 + 2.0 * img1 * b2 - 2.0 * b2m1 + img2 * b3 - b3m2
+        return dimg1[0], None, None
+
+
+def fused_ssim_weighted_sum(
+    img1: torch.Tensor, img2: torch.Tensor, weight: torch.Tensor
+) -> torch.Tensor:
+    """The stripe-local SSIM term of ``parallel.gshard``: a (C, Hext, W)
+    strip extended by the blur's 5-row halo, and a (Hext, W) ``weight`` that
+    selects the strip's own rows and carries the full image's 1/denominator,
+    so the sum over stripes is the full-image ``fused_ssim``."""
+    return _FusedSSIMWeightedSum.apply(img1, img2, weight)
+
+
 def photometric_loss(image: torch.Tensor, gt: torch.Tensor, lambda_dssim: float) -> torch.Tensor:
     """(1 - lambda) L1 + lambda (1 - SSIM), with the fused SSIM."""
     return (1.0 - lambda_dssim) * l1_loss(image, gt) + lambda_dssim * (1.0 - fused_ssim(image, gt))

@@ -212,20 +212,9 @@ def _render(
     else:
         capacity = -(-capacity // cfg.chunk) * cfg.chunk
 
-    fields = blend_fields(proj)
-    untile_kw = dict(grid_x=grid_x, grid_y=grid_y, tile_w=tile_w, tile_h=tile_h,
-                     width=W, height=H)
-    if torch.is_grad_enabled() and fields.requires_grad:
-        packed, overflow, num_instances = _RasterCore.apply(
-            fields, _detached(proj), grid_x, grid_y, tile_w, tile_h, capacity, kernels,
-        )
-        img = ut.untile_differentiable(packed, **untile_kw, kernels=kernels)
-    else:
-        layout, packed = _bin_and_blend(proj, fields, grid_x, grid_y, tile_w, tile_h,
-                                        capacity, kernels)
-        untile = ut.untile if kernels else ut.untile_plain
-        img = untile(packed, **untile_kw, cols=bl.CT_COLS)
-        overflow, num_instances = layout.overflow, layout.num_instances
+    img, overflow, num_instances = rasterize_fields(
+        blend_fields(proj), proj, grid_x=grid_x, grid_y=grid_y, tile_w=tile_w,
+        tile_h=tile_h, width=W, height=H, capacity=capacity, kernels=kernels)
     T_img = img[bl.O_T]
     color = img[bl.O_R : bl.O_B + 1] + T_img[None] * bg_color[:, None, None]
     return RenderResult(
@@ -237,6 +226,28 @@ def _render(
         overflow=overflow,
         num_instances=num_instances,
     )
+
+
+def rasterize_fields(
+    fields: torch.Tensor, proj: ProjectedGaussians, *, grid_x: int, grid_y: int,
+    tile_w: int, tile_h: int, width: int, height: int, capacity: int, kernels: bool = True,
+):
+    """The tiled core on a (P, 10) blend table and its binning geometry:
+    K1 + sort -> K2 -> K3, differentiable in ``fields`` (K5 -> K6 and K4)
+    when they require grad.  Returns the ``CT_COLS`` planes cropped to
+    (height, width), the overflow flag and the slot demand."""
+    untile_kw = dict(grid_x=grid_x, grid_y=grid_y, tile_w=tile_w, tile_h=tile_h,
+                     width=width, height=height)
+    if torch.is_grad_enabled() and fields.requires_grad:
+        packed, overflow, num_instances = _RasterCore.apply(
+            fields, _detached(proj), grid_x, grid_y, tile_w, tile_h, capacity, kernels,
+        )
+        return ut.untile_differentiable(packed, **untile_kw, kernels=kernels), overflow, \
+            num_instances
+    layout, packed = _bin_and_blend(proj, fields, grid_x, grid_y, tile_w, tile_h,
+                                    capacity, kernels)
+    untile = ut.untile if kernels else ut.untile_plain
+    return untile(packed, **untile_kw, cols=bl.CT_COLS), layout.overflow, layout.num_instances
 
 
 def _detached(proj: ProjectedGaussians) -> ProjectedGaussians:

@@ -28,6 +28,7 @@ from gaussian_splatting_torch.models.gaussians import (
     create_from_pcd,
     load_model_ply,
 )
+from gaussian_splatting_torch.parallel.mesh import is_main_process
 
 
 class Scene:
@@ -61,7 +62,7 @@ class Scene:
             eval_split=cfg.eval,
             white_background=cfg.white_background,
         )
-        if not self.loaded_iter and self.model_path:
+        if not self.loaded_iter and self.model_path and is_main_process():
             os.makedirs(self.model_path, exist_ok=True)
             shutil.copyfile(info.ply_path, os.path.join(self.model_path, "input.ply"))
             cam_json = [camera_to_json(i, c)

@@ -9,6 +9,15 @@ Writes what the JAX trainer writes: ``cfg_args.json``, ``opt_args.json``,
 ``exposure.json`` and ``raster_state.json``, and ``chkpnt<it>.pth``
 checkpoints, which ``--start_checkpoint`` resumes from.  Runs on the card
 unless ``--device cpu`` is given.
+
+``--parallel dp|gshard`` trains on every rank of a ``torch.distributed``
+world, one process per card:
+
+    torchrun --nproc_per_node N -m gaussian_splatting_torch.train --parallel gshard -s ... -m ...
+
+Each rank runs on ``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device
+cpu``); without ``torchrun`` the process forms a world of one.  Rank 0
+writes the files.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from gaussian_splatting_torch.config import (
     PipelineConfig,
     save_config,
 )
+from gaussian_splatting_torch.parallel.mesh import init_distributed, is_main_process, shutdown
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -73,7 +83,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", type=str, default="",
                    help="directory for a torch.profiler trace of the training loop")
     p.add_argument("--parallel", type=str, default="none", choices=["none", "dp", "gshard"],
-                   help="multi-device strategy (not ported yet: only 'none' runs)")
+                   help="multi-device strategy: camera data-parallel or Gaussian/tile-sharded")
     p.add_argument("--parallel_devices", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain PyTorch path")
@@ -90,32 +100,46 @@ def main(argv: Optional[List[str]] = None):
     args = _parser().parse_args(argv)
     args.save_iterations.append(args.iterations)
     device = resolve_device(args.device)
+    parallel = args.parallel != "none"
+    if parallel:  # this rank's device: cuda:LOCAL_RANK under torchrun
+        device = init_distributed(device)
+    try:
+        return _run(args, device, is_main_process())
+    finally:
+        if parallel:
+            shutdown()
 
+
+def _run(args, device, is_main: bool):
     if not args.model_path:
         stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-        args.model_path = os.path.join("./output", f"{stamp}_{str(uuid.uuid4())[:8]}")
-    os.makedirs(args.model_path, exist_ok=True)
-    print(f"Output folder: {args.model_path}")
-
+        path = [os.path.join("./output", f"{stamp}_{str(uuid.uuid4())[:8]}")]
+        if args.parallel != "none":
+            torch.distributed.broadcast_object_list(path, src=0)  # rank 0's name
+        args.model_path = path[0]
     model_cfg = _extract(ModelConfig, args)
     opt = _extract(OptimizationConfig, args)
     pipe = _extract(PipelineConfig, args)
-    save_config(model_cfg, os.path.join(args.model_path, "cfg_args.json"))
-    save_config(opt, os.path.join(args.model_path, "opt_args.json"))
-    save_config(pipe, os.path.join(args.model_path, "pipe_args.json"))
+    if is_main:
+        os.makedirs(args.model_path, exist_ok=True)
+        print(f"Output folder: {args.model_path}")
+        save_config(model_cfg, os.path.join(args.model_path, "cfg_args.json"))
+        save_config(opt, os.path.join(args.model_path, "opt_args.json"))
+        save_config(pipe, os.path.join(args.model_path, "pipe_args.json"))
 
     from gaussian_splatting_torch.train.loop import train
 
     tb_writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if is_main:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        tb_writer = SummaryWriter(args.model_path)
-    except ImportError:
-        print("Tensorboard not available: not logging progress")
+            tb_writer = SummaryWriter(args.model_path)
+        except ImportError:
+            print("Tensorboard not available: not logging progress")
 
     prof = None
-    if args.profile:
+    if args.profile and is_main:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]

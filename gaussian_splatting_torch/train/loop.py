@@ -13,6 +13,16 @@ queue.  An overflowed step leaves the state as it was (``train_step``'s
 device-side select); the loop puts its camera back and doubles the slack.
 With ``viewer_ip`` set, a viewer server (``viewer.network_gui``) is polled at
 the top of every iteration and serves ``render_custom_cam`` frames.
+
+``parallel="dp"`` or ``"gshard"`` runs the same loop on every rank of a
+``torch.distributed`` world (``parallel.mesh``: ``torchrun``'s, or a world
+of one).  Every rank draws the same cameras from the same seeded ``random``
+and makes the same host decisions from metrics that are equal on every
+rank.  DP gives rank r the r-th camera of each batch; gshard keeps every
+per-Gaussian tensor sharded on its capacity axis, gathers the state at a
+boundary (growth, densify, reset, eval, snapshot, checkpoint), runs it
+there on every rank alike, and shards it again.  Only rank 0 writes files,
+reports PSNR and serves the viewer.
 """
 
 from __future__ import annotations
@@ -44,6 +54,20 @@ from gaussian_splatting_torch.models.gaussians import (
     grow_capacity,
 )
 from gaussian_splatting_torch.ops.preprocess import preprocess
+from gaussian_splatting_torch.parallel.dp import dp_train_step
+from gaussian_splatting_torch.parallel.gshard import (
+    default_cap_x,
+    gather_state,
+    gshard_train_step,
+    shard_state,
+)
+from gaussian_splatting_torch.parallel.mesh import (
+    init_distributed,
+    is_main_process,
+    rank,
+    shutdown,
+    world_size,
+)
 from gaussian_splatting_torch.scene import Scene
 from gaussian_splatting_torch.train.optim import AdamState
 from gaussian_splatting_torch.train.step import (
@@ -189,19 +213,40 @@ def train(
     device=None,
 ) -> TrainState:
     """Train a model from the scene at ``model_cfg.source_path`` into
-    ``model_cfg.model_path``; returns the final state.  Runs on the card
-    unless ``device`` says otherwise."""
+    ``model_cfg.model_path``; returns the final (whole) state.  Runs on the
+    card unless ``device`` says otherwise.  ``parallel`` is "none", "dp" or
+    "gshard"; ``parallel_devices`` 0 means the world's size, and any other
+    value must equal it."""
     random.seed(seed)
     np.random.seed(seed)
     if parallel not in ("none", "dp", "gshard"):
         raise ValueError(f"unknown parallel mode: {parallel}")
-    if parallel != "none":
-        raise NotImplementedError(
-            f"parallel={parallel!r}: multi-GPU training (dp / gshard on "
-            "torch.distributed) is a later slice of the port")
     dev = resolve_device(device)
+    n_dev, owns_group = 1, False
+    if parallel != "none":
+        owns_group = not torch.distributed.is_initialized()
+        dev = init_distributed(dev)
+        n_dev = world_size()
+        if parallel_devices and parallel_devices != n_dev:
+            if owns_group:
+                shutdown()
+            raise ValueError(f"parallel_devices={parallel_devices}, but the world has "
+                             f"{n_dev} ranks")
+        print(f"[parallel] {parallel} over {n_dev} ranks; rank {rank()} on {dev}")
+    main = is_main_process()
+    sharded = parallel == "gshard"
 
-    if model_cfg.model_path:
+    def round_cap(c: int) -> int:
+        # gshard splits the capacity axis equally over the ranks
+        return -(-c // n_dev) * n_dev if sharded else c
+
+    def full_capacity() -> int:
+        return state.model.capacity * (n_dev if sharded else 1)
+
+    def whole(s: TrainState) -> TrainState:
+        return gather_state(s) if sharded else s
+
+    if model_cfg.model_path and main:
         os.makedirs(model_cfg.model_path, exist_ok=True)
         cfg_path = os.path.join(model_cfg.model_path, "cfg_args.json")
         if not os.path.exists(cfg_path):
@@ -231,6 +276,11 @@ def train(
 
     bg = np.array([1.0, 1.0, 1.0] if model_cfg.white_background else [0.0, 0.0, 0.0],
                   np.float32)
+    if sharded:
+        if state.model.capacity % n_dev:
+            state = grow_train_state(state, round_cap(state.model.capacity))
+        state = shard_state(state)
+    xcap = 0  # gshard's records per destination stripe (0: its default)
 
     # device-resident batches, least recently used out past the byte budget
     batch_cache: Dict[int, StepBatch] = collections.OrderedDict()
@@ -253,7 +303,9 @@ def train(
         return batch
 
     viewer = None
-    if viewer_ip:
+    if viewer_ip and main and sharded and n_dev > 1:
+        print(f"Viewer not served: under gshard the model is split over {n_dev} ranks")
+    elif viewer_ip and main:
         from gaussian_splatting_torch.viewer.network_gui import ViewerServer, poll_viewer
 
         try:
@@ -292,13 +344,28 @@ def train(
                 random.shuffle(cam_stack)
             cam_idx = cam_stack.pop()
             camera = train_cams[cam_idx]
-            if opt.random_background:
-                batch = make_batch(camera, np.random.rand(3).astype(np.float32))
+            step_kw = dict(opt=opt, raster=raster, use_exposure=model_cfg.train_test_exp,
+                           use_depth=use_depth)
+            if parallel == "dp":
+                # one camera per rank, all of this camera's resolution; the
+                # epoch's tail samples with replacement (JAX loop.py:448-480)
+                sel = dp_cameras(cam_idx, cam_stack, train_cams, n_dev)
+                bgs = ([np.random.rand(3).astype(np.float32) for _ in sel]
+                       if opt.random_background else None)
+                mine = sel[rank()]
+                batch = (make_batch(train_cams[mine], bgs[rank()]) if bgs
+                         else cache_batch(mine, train_cams[mine]))
+                state, metrics = dp_train_step(state, train_cams[mine].cam, batch, **step_kw)
             else:
-                batch = cache_batch(cam_idx, camera)
-            state, metrics = train_step(state, camera.cam, batch, opt=opt, raster=raster,
-                                        use_exposure=model_cfg.train_test_exp,
-                                        use_depth=use_depth)
+                if opt.random_background:
+                    batch = make_batch(camera, np.random.rand(3).astype(np.float32))
+                else:
+                    batch = cache_batch(cam_idx, camera)
+                if sharded:
+                    state, metrics = gshard_train_step(state, camera.cam, batch,
+                                                       exchange_capacity=xcap, **step_kw)
+                else:
+                    state, metrics = train_step(state, camera.cam, batch, **step_kw)
 
             pending.append((iteration, t_iter_start, cam_idx, metrics))
             need_sync = (
@@ -324,6 +391,11 @@ def train(
                               f"device-side no-op; instance_slack -> {slack} "
                               f"({overflow_discards} consecutive)")
                         raster = dataclasses.replace(raster, instance_slack=slack)
+                        if sharded:
+                            # the flag also covers the exchange buffers:
+                            # grow them beside the slack
+                            pt = full_capacity()
+                            xcap = min(2 * (xcap or default_cap_x(pt, n_dev)), pt // n_dev)
                         stale_ovf_cutoff = iteration
                         if overflow_discards >= MAX_OVERFLOW_DOUBLINGS:
                             raise RuntimeError(
@@ -345,12 +417,12 @@ def train(
             # grow the slack at 100-iteration boundaries once demand passes 70%
             # of the buffer; shrink it every 500 when demand fell below 30%
             if iteration % 100 == 0:
-                cap_now = int(raster.instance_slack * state.model.capacity)
+                cap_now = int(raster.instance_slack * full_capacity())
                 new_slack = None
                 if max_demand > 0.7 * cap_now:
                     new_slack = raster.instance_slack * 1.5
                 elif iteration % 500 == 0 and 0 < max_demand < 0.3 * cap_now:
-                    new_slack = max(2.2 * max_demand / state.model.capacity, 2.0)
+                    new_slack = max(2.2 * max_demand / full_capacity(), 2.0)
                     if new_slack >= raster.instance_slack:
                         new_slack = None
                 if new_slack is not None:
@@ -360,22 +432,24 @@ def train(
                 if iteration % 500 == 0:
                     max_demand = 0  # a windowed maximum, so the slack can shrink
 
-            do_grow = iteration % 100 == 0 and int(last_m[5]) > 0.9 * state.model.capacity
+            do_grow = iteration % 100 == 0 and int(last_m[5]) > 0.9 * full_capacity()
             do_densify = (opt.densify_from_iter < iteration < opt.densify_until_iter
                           and iteration % opt.densification_interval == 0)
             do_reset = iteration < opt.densify_until_iter and (
                 iteration % opt.opacity_reset_interval == 0
                 or (model_cfg.white_background and iteration == opt.densify_from_iter)
             )
+            if (do_grow or do_densify or do_reset) and sharded:
+                state = gather_state(state)  # densify's free slots are global
             if do_grow:
-                new_cap = int(state.model.capacity * 1.5)
+                new_cap = round_cap(int(state.model.capacity * 1.5))
                 print(f"[it {iteration}] growing capacity {state.model.capacity} -> {new_cap}")
                 state = grow_train_state(state, new_cap)
             if do_densify:
                 limit = 20 if iteration > opt.opacity_reset_interval else 0
                 state, dstats = densify_step(state, generator, opt=opt, max_screen_size=limit)
                 if int(dstats["dropped"]) > 0:
-                    state = grow_train_state(state, int(state.model.capacity * 1.5))
+                    state = grow_train_state(state, round_cap(int(state.model.capacity * 1.5)))
             if do_reset:
                 state = opacity_reset_step(state)
             if do_densify:
@@ -386,6 +460,8 @@ def train(
                     est = max(est, raster.instance_slack * 1.25)
                     print(f"[it {iteration}] densify re-probe: instance_slack -> {est:.1f}")
                     raster = dataclasses.replace(raster, instance_slack=est)
+            if (do_grow or do_densify or do_reset) and sharded:
+                state = shard_state(state)
 
             if not quiet and iteration % 500 == 0:
                 print(f"[it {iteration}/{opt.iterations}] loss={ema_loss:.5f} "
@@ -395,24 +471,53 @@ def train(
             if on_iteration is not None:
                 on_iteration(iteration, state, metrics)
 
-            if iteration in test_iterations:
-                report_psnr(scene, state, raster, model_cfg, iteration, tb_writer=tb_writer,
+            if (iteration in test_iterations or iteration in save_iterations
+                    or iteration in checkpoint_iterations):
+                full = whole(state)  # every rank takes part; rank 0 uses it
+            if iteration in test_iterations and main:
+                report_psnr(scene, full, raster, model_cfg, iteration, tb_writer=tb_writer,
                             first_report=iteration == min(test_iterations, default=iteration))
 
-            if iteration in save_iterations:
+            if iteration in save_iterations and main:
                 print(f"\n[ITER {iteration}] Saving Gaussians")
-                scene.save(iteration, state.model, state.exposures)
+                scene.save(iteration, full.model, full.exposures)
                 if model_cfg.model_path:
-                    save_raster_state(model_cfg.model_path, raster, state.model.capacity)
+                    save_raster_state(model_cfg.model_path, raster, full.model.capacity)
 
-            if iteration in checkpoint_iterations:
+            if iteration in checkpoint_iterations and main:
                 print(f"\n[ITER {iteration}] Saving Checkpoint")
                 save_checkpoint(os.path.join(model_cfg.model_path, f"chkpnt{iteration}.pth"),
-                                state, iteration)
+                                full, iteration)
+        state = whole(state)
     finally:
         if viewer is not None:
             viewer.close()
+        if owns_group:
+            shutdown()
     return state
+
+
+def dp_cameras(cam_idx: int, cam_stack: list, train_cams, n: int) -> list:
+    """The DP batch of a step: ``cam_idx`` and up to n - 1 cameras of the
+    same resolution taken from the top of ``cam_stack`` (removed from it),
+    then, at an epoch's tail, cameras of that resolution drawn with
+    replacement from ``random``."""
+    size = (train_cams[cam_idx].height, train_cams[cam_idx].width)
+
+    def same(i):
+        return (train_cams[i].height, train_cams[i].width) == size
+
+    sel = [cam_idx]
+    j = len(cam_stack) - 1
+    while len(sel) < n and j >= 0:
+        if same(cam_stack[j]):
+            sel.append(cam_stack.pop(j))
+        j -= 1
+    if len(sel) < n:
+        pool = [i for i in range(len(train_cams)) if same(i)]
+        while len(sel) < n:
+            sel.append(random.choice(pool))
+    return sel
 
 
 def render_camera(

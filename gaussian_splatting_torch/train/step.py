@@ -4,7 +4,8 @@ Counterpart of ``gaussian_splatting_tpu/train/step.py``:
 
 - ``train_step``: render -> photometric (+ depth) loss -> backward (K5 ->
   K6 -> K4 under autograd) -> Adam on the Gaussians and the exposures ->
-  densification statistics.
+  densification statistics.  Its halves, ``step_gradients`` and
+  ``apply_gradients``, are what ``parallel.dp`` reduces between.
 - ``densify_step``: clone / split / prune + moment zeroing.
 - ``opacity_reset_step``: opacity clamp + opacity moment zeroing.
 
@@ -113,8 +114,36 @@ def train_step(
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimisation iteration; updates ``state`` in place and returns it
     with device-side metrics."""
+    g = step_gradients(state, cam, batch, opt=opt, raster=raster,
+                       use_exposure=use_exposure, use_depth=use_depth)
+    with torch.no_grad():
+        apply_gradients(state, g.params, g.tap, g.exposures, g.radii, g.overflow, opt=opt,
+                        use_exposure=use_exposure)
+        return state, step_metrics(g.loss, g.l1, g.depth_loss, g.overflow, g.num_instances,
+                                   state.model.num_alive())
+
+
+class StepGradients(NamedTuple):
+    """One camera's loss terms and gradients, before any reduction."""
+
+    loss: torch.Tensor
+    l1: torch.Tensor
+    depth_loss: torch.Tensor
+    params: Dict[str, torch.Tensor]  # by parameter name
+    tap: torch.Tensor  # (C, 2) the densification tap's gradient
+    exposures: Optional[torch.Tensor]  # (N_images, 3, 4) with use_exposure
+    radii: torch.Tensor
+    overflow: torch.Tensor
+    num_instances: torch.Tensor
+
+
+def step_gradients(
+    state: TrainState, cam: CameraParams, batch: StepBatch, *, opt: OptimizationConfig,
+    raster: RasterizeConfig, use_exposure: bool = False, use_depth: bool = False,
+) -> StepGradients:
+    """Render one camera, its photometric (+ depth) loss and the gradients
+    of the Gaussians, the tap and the exposures."""
     model = state.model
-    step = state.step + 1
     leaves = model.params()
     exposures = state.exposures.detach().requires_grad_(use_exposure)
     tap = torch.zeros((model.capacity, 2), dtype=torch.float32,
@@ -134,7 +163,7 @@ def train_step(
         loss = photometric_loss(image, gt, opt.lambda_dssim)
         depth_loss = torch.zeros((), dtype=torch.float32, device=image.device)
         if use_depth:
-            w = expon_lr(step, lr_init=opt.depth_l1_weight_init,
+            w = expon_lr(state.step + 1, lr_init=opt.depth_l1_weight_init,
                          lr_final=opt.depth_l1_weight_final, max_steps=opt.iterations)
             depth_loss = w * depth_l1_loss(out.invdepth, batch.invdepth_gt, batch.depth_mask)
             loss = loss + depth_loss
@@ -143,55 +172,73 @@ def train_step(
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, grads)]
 
     with torch.no_grad():
-        l1 = l1_loss(image, gt)
-        g_params = dict(zip(leaves, grads[: len(leaves)]))
-        g_tap = grads[len(leaves)]
-        # dead capacity slots do not exist in the reference's exactly-sized
-        # arrays: mask their gradients so no numerical dust ever moves them
-        alive = model.alive
-        g_params = {k: g * alive.reshape((-1,) + (1,) * (g.dim() - 1)) for k, g in g_params.items()}
-
-        lrs = group_lrs(opt, step, model.spatial_lr_scale)
-        visible = out.radii > 0 if opt.optimizer_type == "sparse_adam" else None
-        new_params, new_adam = adam_update(
-            g_params, state.adam, {k: v.detach() for k, v in leaves.items()}, lrs,
-            visible=visible,
+        return StepGradients(
+            loss=loss.detach(), l1=l1_loss(image, gt), depth_loss=depth_loss.detach(),
+            params=dict(zip(leaves, grads[: len(leaves)])), tap=grads[len(leaves)],
+            exposures=grads[-1] if use_exposure else None, radii=out.radii,
+            overflow=out.overflow, num_instances=out.num_instances,
         )
-        new = {**new_params}
-        if use_exposure:
-            e_new, e_adam = adam_update(
-                {"exposures": grads[-1]}, state.exp_adam,
-                {"exposures": state.exposures}, exposure_lr(opt, step),
-            )
-            new["exposures"] = e_new["exposures"]
-            _put_adam(new, "exp_adam", e_adam)
-        new.update(add_densification_stats(
-            {k: getattr(model, k) for k in STAT_NAMES}, g_tap, out.radii))
-        _put_adam(new, "adam", new_adam)
-        new["step"] = step
 
-        # overflow guard on the device: every state tensor keeps its old
-        # value when the instance buffer overflowed (in-place copies)
-        ovf = out.overflow
-        current = state.tensors()
-        for name, value in new.items():
-            old = current[name]
-            old.copy_(torch.where(ovf, old, value))
 
-        num_alive = model.num_alive()
-        metrics = {
-            "loss": loss.detach(),
-            "l1": l1,
-            "depth_loss": depth_loss.detach(),
-            "overflow": out.overflow,
-            "num_instances": out.num_instances,
-            "num_alive": num_alive,
-        }
-        metrics["packed"] = torch.stack([
-            metrics["loss"], l1, metrics["depth_loss"], out.overflow.to(torch.float32),
-            out.num_instances.to(torch.float32), num_alive.to(torch.float32),
-        ])
-    return state, metrics
+def apply_gradients(
+    state: TrainState,
+    g_params: Dict[str, torch.Tensor],
+    g_tap: torch.Tensor,
+    g_exposures: Optional[torch.Tensor],
+    radii: torch.Tensor,
+    overflow: torch.Tensor,
+    *,
+    opt: OptimizationConfig,
+    use_exposure: bool = False,
+) -> None:
+    """Adam on the Gaussians (and the exposures), the densification
+    statistics and the step count, in place; every state tensor keeps its
+    value where ``overflow`` is set.  Call under ``torch.no_grad``."""
+    model = state.model
+    step = state.step + 1
+    leaves = model.params()
+    # dead capacity slots do not exist in the reference's exactly-sized
+    # arrays: mask their gradients so no numerical dust ever moves them
+    alive = model.alive
+    g_params = {k: g * alive.reshape((-1,) + (1,) * (g.dim() - 1)) for k, g in g_params.items()}
+
+    lrs = group_lrs(opt, step, model.spatial_lr_scale)
+    visible = radii > 0 if opt.optimizer_type == "sparse_adam" else None
+    new_params, new_adam = adam_update(
+        g_params, state.adam, {k: v.detach() for k, v in leaves.items()}, lrs,
+        visible=visible,
+    )
+    new = {**new_params}
+    if use_exposure:
+        e_new, e_adam = adam_update(
+            {"exposures": g_exposures}, state.exp_adam,
+            {"exposures": state.exposures}, exposure_lr(opt, step),
+        )
+        new["exposures"] = e_new["exposures"]
+        _put_adam(new, "exp_adam", e_adam)
+    new.update(add_densification_stats(
+        {k: getattr(model, k) for k in STAT_NAMES}, g_tap, radii))
+    _put_adam(new, "adam", new_adam)
+    new["step"] = step
+
+    # overflow guard on the device: every state tensor keeps its old
+    # value when the instance buffer overflowed (in-place copies)
+    current = state.tensors()
+    for name, value in new.items():
+        old = current[name]
+        old.copy_(torch.where(overflow, old, value))
+
+
+def step_metrics(loss, l1, depth_loss, overflow, num_instances, num_alive
+                 ) -> Dict[str, torch.Tensor]:
+    """The step's metrics, and all six in ``packed`` (one tensor to fetch)."""
+    metrics = {"loss": loss, "l1": l1, "depth_loss": depth_loss, "overflow": overflow,
+               "num_instances": num_instances, "num_alive": num_alive}
+    metrics["packed"] = torch.stack([
+        loss, l1, depth_loss, overflow.to(torch.float32),
+        num_instances.to(torch.float32), num_alive.to(torch.float32),
+    ])
+    return metrics
 
 
 def _put_adam(new: Dict[str, torch.Tensor], tag: str, adam: AdamState) -> None:

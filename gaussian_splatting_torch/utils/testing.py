@@ -5,7 +5,9 @@
 both packages the same Gaussians and camera.  ``viewer_message`` and
 ``ViewerClient`` play the SIBR viewer's side of ``viewer.network_gui``;
 ``random_lpips_weights`` and ``analytic_test_rays`` make the evaluation
-suite's inputs.
+suite's inputs.  ``World`` runs functions on every rank of a gloo world of
+spawned CPU processes; the ``*_worker`` functions are the multi-GPU tests'
+ranks, and ``emulated_exchange`` emulates gshard's n ranks in one process.
 """
 
 from __future__ import annotations
@@ -408,3 +410,300 @@ def analytic_test_rays(n: int = 4096, seed: int = 3) -> Tuple[np.ndarray, np.nda
     d = d[:, 0:1] * right + d[:, 1:2] * upv + d[:, 2:3] * fwd
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return eye, d
+
+
+# ---- multi-rank worlds ------------------------------------------------------
+# ``World`` spawns ranks that import the worker function by name, so the
+# workers live here, in a module that imports nothing of JAX.
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _to_numpy(value):
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    if isinstance(value, dict):
+        return {k: _to_numpy(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_numpy(v) for v in value)
+    return value
+
+
+def _world_rank(calls, rank, world, port, results, timeout_s):
+    import os
+    import traceback
+
+    from gaussian_splatting_torch.parallel import mesh
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    try:
+        mesh.init_distributed("cpu", timeout_s=timeout_s)
+        results.put((rank, None, _to_numpy([fn(rank, world, *args) for fn, *args in calls])))
+    except Exception:
+        results.put((rank, traceback.format_exc(), None))
+    finally:
+        mesh.shutdown()
+
+
+class World:
+    """Each call ``(fn, *args)`` in turn, as ``fn(rank, world, *args)``, on
+    every rank of a gloo world of ``world`` spawned processes on the CPU, as
+    ``torchrun`` would start them.  The ranks start at once; ``results``
+    waits for them.  Each ``fn`` must be importable from a module that
+    imports no JAX: the ranks import it afresh."""
+
+    def __init__(self, world: int, *calls, timeout_s: float = 120.0):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.world, self.timeout_s = world, timeout_s
+        self.deadline = time.monotonic() + timeout_s
+        self.queue = ctx.Queue()
+        port = _free_port()
+        self.procs = [ctx.Process(target=_world_rank,
+                                  args=(calls, r, world, port, self.queue, timeout_s))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def results(self) -> list:
+        """Each rank's list of results, in rank order, tensors as numpy
+        arrays.  Raises if a rank raised or died, or when the world outlives
+        its ``timeout_s``; every process has ended when it returns."""
+        import queue
+
+        out = {}
+        try:
+            while len(out) < self.world:
+                try:
+                    r, error, value = self.queue.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [p.exitcode for p in self.procs if p.exitcode not in (None, 0)]
+                    if dead:
+                        raise RuntimeError(f"a rank died with exit code {dead[0]}")
+                    if time.monotonic() > self.deadline:
+                        raise TimeoutError(f"the world of {self.world} ranks ran past "
+                                           f"{self.timeout_s} s")
+                    continue
+                if error is not None:
+                    raise RuntimeError(f"rank {r} of {self.world} failed:\n{error}")
+                out[r] = value
+        finally:
+            for p in self.procs:
+                if len(out) < self.world:
+                    p.kill()
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return [out[r] for r in range(self.world)]
+
+
+def collective_inputs(rank: int, world: int) -> Dict[str, np.ndarray]:
+    """Rank ``rank``'s inputs of ``collectives_worker``; ``shared`` is the
+    same on every rank."""
+    g = np.random.default_rng(100 + rank)
+    return {
+        "x": g.normal(size=(world, 3)).astype(np.float32),
+        "w": g.normal(size=(world, 3)).astype(np.float32),
+        "stripe": g.normal(size=(2, 7, 4)).astype(np.float32),
+        "halo_w": g.normal(size=(2, 11, 4)).astype(np.float32),
+        "shared": np.random.default_rng(7).normal(size=(world, 3)).astype(np.float32),
+    }
+
+
+def collectives_worker(rank: int, world: int) -> Dict[str, torch.Tensor]:
+    """Each collective's value and its input's gradient for a weighted sum
+    of its output (``collective_inputs``; a 2-row halo on 7-row stripes)."""
+    from gaussian_splatting_torch.parallel import collectives as coll
+
+    t = {k: torch.from_numpy(v) for k, v in collective_inputs(rank, world).items()}
+    out = {}
+    for name, fn, x, w in (
+        ("sum", coll.all_reduce_sum, t["x"], t["w"]),
+        ("a2a", coll.all_to_all, t["x"], t["w"]),
+        ("halo", lambda v: coll.halo_exchange(v, 2), t["stripe"], t["halo_w"]),
+        ("gather", coll.all_gather, t["x"][0], t["shared"]),
+    ):
+        leaf = x.clone().requires_grad_(True)
+        y = fn(leaf)
+        (g,) = torch.autograd.grad((y * w).sum(), leaf)
+        out[name], out[name + "_grad"] = y, g
+    out["max"] = coll.all_reduce_max(torch.tensor([rank, -rank], dtype=torch.int32))
+    out["any"] = coll.all_reduce_max(torch.tensor(rank == world - 1))
+    return out
+
+
+# the sharded render checks: the issue's 48 x 32 px, 256 Gaussians
+SHARD_RENDER = dict(width=48, height=32, num_gaussians=256)
+
+
+def shard_render_scene(heavy: bool = False) -> SyntheticScene:
+    """The sharded render's scene; ``heavy`` has large Gaussians, most of
+    which straddle stripe boundaries."""
+    kw = dict(spread=0.6, scale_range=(0.1, 0.3), seed=11) if heavy else dict(seed=9)
+    return random_scene(SHARD_RENDER["num_gaussians"], sh_degree=1,
+                        width=SHARD_RENDER["width"], height=SHARD_RENDER["height"],
+                        device="cpu", **kw)
+
+
+def shard_render_worker(rank: int, world: int) -> Dict[str, torch.Tensor]:
+    """``render_gaussian_sharded`` on this rank's contiguous shard: the image,
+    the overflow flag and the means' gradient of sum((image - 0.25)^2); on
+    the heavy scene, the overflow flag at ``exchange_capacity=8`` and the
+    image and flag at the default capacity."""
+    from gaussian_splatting_torch.parallel.gshard import render_gaussian_sharded
+
+    def shard(scene, grad=False):
+        k = scene.means3d.shape[0] // world
+        arrays = [a[rank * k: (rank + 1) * k].clone() for a in
+                  (scene.means3d, scene.scales, scene.quats, scene.opacities, scene.sh)]
+        arrays[0].requires_grad_(grad)
+        return arrays
+
+    s = shard_render_scene()
+    leaves = shard(s, grad=True)
+    image, overflow = render_gaussian_sharded(*leaves, s.cam, s.bg, sh_degree=1,
+                                              return_overflow=True)
+    (grad,) = torch.autograd.grad(((image - 0.25) ** 2).sum(), leaves[0])
+    h = shard_render_scene(heavy=True)
+    with torch.no_grad():
+        _, tiny = render_gaussian_sharded(*shard(h), h.cam, h.bg, sh_degree=1,
+                                          exchange_capacity=8, return_overflow=True)
+        heavy, heavy_ovf = render_gaussian_sharded(*shard(h), h.cam, h.bg, sh_degree=1,
+                                                   return_overflow=True)
+    return dict(image=image, overflow=overflow, grad=grad, tiny_overflow=tiny,
+                heavy_image=heavy, heavy_overflow=heavy_ovf)
+
+
+def step_batch(gt: np.ndarray, exposure_idx: int = 0, invdepth: Optional[np.ndarray] = None,
+               depth_mask: Optional[np.ndarray] = None):
+    """A ``train.step.StepBatch`` on the CPU: black background, no alpha."""
+    from gaussian_splatting_torch.train.step import StepBatch
+
+    h, w = gt.shape[1:]
+    zeros = torch.zeros((h, w))
+    return StepBatch(
+        gt_image=torch.from_numpy(gt), alpha_mask=torch.ones((1, h, w)),
+        invdepth_gt=zeros if invdepth is None else torch.from_numpy(invdepth),
+        depth_mask=zeros if depth_mask is None else torch.from_numpy(depth_mask),
+        exposure_idx=torch.tensor(exposure_idx), bg_color=torch.zeros(3))
+
+
+def parallel_steps_worker(rank: int, world: int, mode: str, leaves: Dict, batches: list,
+                          cam_seeds: list, steps: int, use_exposure: bool,
+                          use_depth: bool) -> Dict:
+    """``steps`` iterations of ``dp_train_step`` (rank r: camera ``cam_seeds[r]``
+    and batch r of ``batches``, dicts of ``step_batch`` arguments) or of
+    ``gshard_train_step`` (every rank: camera and batch 0, the state
+    sharded) from the state ``interop.train_state_from_jax(**leaves)``.
+    Returns each step's packed metrics and the final whole state."""
+    from gaussian_splatting_torch.config import OptimizationConfig, RasterizeConfig
+    from gaussian_splatting_torch.interop import train_state_from_jax
+    from gaussian_splatting_torch.parallel.dp import dp_train_step
+    from gaussian_splatting_torch.parallel.gshard import (
+        gather_state,
+        gshard_train_step,
+        shard_state,
+    )
+
+    w, h = batches[0]["gt"].shape[2], batches[0]["gt"].shape[1]
+    state = train_state_from_jax(**leaves, device="cpu")
+    view = rank if mode == "dp" else 0
+    cam = random_scene(4, width=w, height=h, seed=cam_seeds[view], device="cpu").cam
+    batch = step_batch(**batches[view])
+    if mode == "gshard":
+        state = shard_state(state)
+    step = dp_train_step if mode == "dp" else gshard_train_step
+    packed = []
+    for _ in range(steps):
+        state, metrics = step(state, cam, batch, opt=OptimizationConfig(),
+                              raster=RasterizeConfig(), use_exposure=use_exposure,
+                              use_depth=use_depth)
+        packed.append(metrics["packed"])
+    if mode == "gshard":
+        state = gather_state(state)
+    return {"packed": torch.stack(packed), "state": state.tensors()}
+
+
+def parallel_train_worker(rank: int, world: int, scene_dir: str, out_dir: str, modes: list,
+                          train_kw: Dict) -> Dict:
+    """``train.loop.train`` on the CPU with each ``parallel`` mode of
+    ``modes`` in turn (model path ``out_dir/<mode>``): each iteration's loss,
+    the returned state, and every path under ``out_dir`` this rank opened
+    for writing or created (an audit hook's record)."""
+    import os
+    import sys
+
+    from gaussian_splatting_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from gaussian_splatting_torch.train.loop import train
+
+    writes = set()
+    writing_flags = os.O_WRONLY | os.O_RDWR | os.O_CREAT
+
+    def audit(event, args):
+        if event == "open":
+            path, mode, flags = args
+            if not (mode and any(c in mode for c in "wax+")) and not (
+                    mode is None and isinstance(flags, int) and flags & writing_flags):
+                return
+        elif event in ("os.mkdir", "os.rename", "os.remove", "shutil.copyfile"):
+            path = args[-1] if event == "shutil.copyfile" else args[0]
+        else:
+            return
+        if isinstance(path, (str, os.PathLike)) and os.fspath(path).startswith(out_dir):
+            writes.add(os.path.relpath(os.fspath(path), out_dir))
+
+    sys.addaudithook(audit)
+    out = {}
+    for mode in modes:
+        losses = []
+        cfg = ModelConfig(source_path=scene_dir, model_path=os.path.join(out_dir, mode))
+        state = train(cfg, OptimizationConfig(**train_kw["opt"]), PipelineConfig(),
+                      parallel=mode, device="cpu",
+                      on_iteration=lambda it, s, m: losses.append(float(m["packed"][0])),
+                      **{k: v for k, v in train_kw.items() if k != "opt"})
+        out[mode] = {"losses": losses, "state": state.tensors()}
+    out["writes"] = sorted(writes)
+    return out
+
+
+def emulated_exchange(means3d, scales, quats, opacities, sh, cam, *, n: int, sh_degree: int):
+    """gshard's exchange for n ranks, emulated in one process: n contiguous
+    shards each projected, packed and routed, and stripe d given the
+    rank-major concatenation of the n sends addressed to it, which is what
+    ``all_to_all`` delivers.  Returns (each stripe's (n * cap_x, 16)
+    records, ``stripe_from_records``'s keyword arguments but ``d`` and
+    ``bg_color``, records routed as (source, destination) counts, and
+    whether any exchange buffer overflowed)."""
+    from gaussian_splatting_torch.config import RasterizeConfig
+    from gaussian_splatting_torch.ops.expand import BIG
+    from gaussian_splatting_torch.ops.preprocess import preprocess
+    from gaussian_splatting_torch.parallel import gshard
+
+    cfg = RasterizeConfig()
+    tile_w, tile_h, grid_x, grid_y_local = gshard._geometry(cam, cfg, n)
+    total = means3d.shape[0]
+    cap_x, capacity = gshard._capacities(total, n, cfg, 0)
+    k = total // n
+    sends, overflow = [], False
+    for s in range(n):
+        part = [a[s * k: (s + 1) * k] for a in (means3d, scales, quats, opacities, sh)]
+        proj = preprocess(*part, cam, sh_degree=sh_degree, tile_w=tile_w, tile_h=tile_h,
+                          antialiasing=cfg.antialiasing)
+        send, ovf = gshard.route_records(gshard.pack_records(proj), proj, n=n,
+                                         grid_y_local=grid_y_local, cap_x=cap_x)
+        sends.append(send)
+        overflow |= bool(ovf)
+    received = [torch.cat([sends[s][d] for s in range(n)]) for d in range(n)]
+    routed = [[int((sends[s][d][:, gshard.R_DEPTH] < BIG).sum()) for d in range(n)]
+              for s in range(n)]
+    kw = dict(grid_x=grid_x, grid_y_local=grid_y_local, tile_w=tile_w, tile_h=tile_h,
+              width=cam.width, capacity=capacity)
+    return received, kw, routed, overflow

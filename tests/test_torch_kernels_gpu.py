@@ -608,3 +608,37 @@ def test_float32_shader_on_the_card_matches_float64_on_the_cpu(cuda, name):
     hit = a64 > 0
     np.testing.assert_allclose(t[hit], t64[hit], rtol=2e-3, atol=2e-3)
     assert np.quantile(np.abs(rgb - rgb64).max(axis=1), 0.97) < 0.02
+
+
+def test_gshard_stripes_match_their_twins_and_the_single_render(cuda):
+    """gshard's stripes, 4 ranks emulated in one process: each stripe's
+    forward (K1-K3) and the backward of sum(colour) + sum(inverse depth)
+    through K4-K6 bitwise equal to the twins; the stitched image within 3e-5
+    of the single render."""
+    from gaussian_splatting_torch.ops.preprocess import clip
+    from gaussian_splatting_torch.parallel.gshard import stripe_from_records
+    from gaussian_splatting_torch.utils.testing import emulated_exchange
+
+    s = random_scene(3000, sh_degree=3, width=W, height=H, seed=3,
+                     scale_range=(0.005, 0.03), bg=(0.1, 0.2, 0.3), device=cuda)
+    arrays = (s.means3d, s.scales, s.quats, s.opacities, s.sh)
+    with torch.no_grad():
+        received, kw, routed, overflow = emulated_exchange(*arrays, s.cam, n=4, sh_degree=3)
+    assert not overflow
+    stripes = []
+    for d, flat in enumerate(received):
+        outs = []
+        for kernels in (True, False):
+            leaf = flat.clone().requires_grad_(True)
+            color, invd, ovf, _ = stripe_from_records(leaf, d=d, bg_color=s.bg,
+                                                      kernels=kernels, **kw)
+            (g,) = torch.autograd.grad(color.sum() + invd.sum(), leaf)
+            assert not bool(ovf)
+            outs.append((color.detach(), invd.detach(), g))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), f"stripe {d}"
+        stripes.append(outs[0][0])
+    image = clip(torch.cat(stripes, dim=1)[:, :H], 0.0, 1.0)
+    single = render(*arrays, s.cam, s.bg, sh_degree=3, inference=True).image
+    assert float((image - single).abs().max()) <= 3e-5
+    assert sum(map(sum, routed)) >= int((s.opacities > 0).sum()) // 2

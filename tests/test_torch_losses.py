@@ -67,3 +67,68 @@ def test_photometric_and_depth_losses_match_jax(images):
     jv, jg = _grad_j(lambda a, b: jl.depth_l1_loss(a, b, jnp.asarray(mask)), invd, mono)
     assert abs(tv - jv) <= 1e-6
     np.testing.assert_allclose(tg, jg, atol=1e-5, rtol=0)
+
+
+def _weighted_inputs(h=24, w=20):
+    rng = np.random.default_rng(2)
+    img1 = rng.random((3, h, w)).astype(np.float32)
+    img2 = rng.random((3, h, w)).astype(np.float32)
+    weight = rng.random((h, w)).astype(np.float32)
+    return img1, img2, weight
+
+
+def test_fused_ssim_weighted_sum_matches_jax():
+    img1, img2, weight = _weighted_inputs()
+    tw = torch.from_numpy(weight)
+    tv, tg = _grad_t(lambda a, b: tl.fused_ssim_weighted_sum(a, b, tw), img1, img2)
+    jv, jg = _grad_j(lambda a, b: jl.fused_ssim_weighted_sum(a, b, jnp.asarray(weight)),
+                     img1, img2)
+    np.testing.assert_allclose(tv, jv, rtol=1e-6)
+    np.testing.assert_allclose(tg, jg, atol=1e-5 * np.abs(jg).max(), rtol=0)
+    assert np.abs(tg).max() > 0
+
+
+def test_fused_ssim_weighted_sum_equals_autograd_of_the_map():
+    """The one-blur backward against autograd through the SSIM map."""
+    img1, img2, weight = _weighted_inputs()
+    tw = torch.from_numpy(weight)
+
+    def plain(a, b):
+        m, _ = tl._ssim_partials(a[None], b[None])
+        return torch.sum(m[0] * tw[None])
+
+    fv, fg = _grad_t(lambda a, b: tl.fused_ssim_weighted_sum(a, b, tw), img1, img2)
+    pv, pg = _grad_t(plain, img1, img2)
+    np.testing.assert_allclose(fv, pv, rtol=1e-6)
+    np.testing.assert_allclose(fg, pg, atol=2e-5, rtol=1e-4)
+
+
+def test_fused_ssim_stripe_decomposition_matches_full_image():
+    """The gshard stripe-local SSIM: per-stripe weighted sums over strips with
+    5-row halos reproduce the full-image ``fused_ssim``, value and gradient,
+    with a ragged last stripe and zero halos at the mesh ends (JAX
+    ``tests/test_losses_fused.py``'s case and tolerances)."""
+    rng = np.random.default_rng(7)
+    h, w, n = 30, 16, 4
+    sh = -(-h // n)
+    hpad = n * sh
+    img1 = rng.random((3, h, w)).astype(np.float32)
+    img2 = torch.from_numpy(rng.random((3, h, w)).astype(np.float32))
+
+    def stripes(i1, i2):
+        i1p = torch.nn.functional.pad(i1, (0, 0, 5, hpad - h + 5))
+        i2p = torch.nn.functional.pad(i2, (0, 0, 5, hpad - h + 5))
+        total = 0.0
+        for d in range(n):
+            y0 = d * sh
+            rows_valid = ((y0 + torch.arange(sh)) < h).to(torch.float32)
+            weight = (torch.nn.functional.pad(rows_valid, (5, 5))[:, None]
+                      * torch.ones((1, w)) / (3.0 * h * w))
+            total = total + tl.fused_ssim_weighted_sum(
+                i1p[:, y0 : y0 + sh + 10], i2p[:, y0 : y0 + sh + 10], weight)
+        return total
+
+    fv, fg = _grad_t(tl.fused_ssim, img1, img2.numpy())
+    sv, sg = _grad_t(stripes, img1, img2.numpy())
+    np.testing.assert_allclose(sv, fv, rtol=1e-6)
+    np.testing.assert_allclose(sg, fg, atol=2e-6, rtol=1e-4)
