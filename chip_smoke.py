@@ -55,11 +55,24 @@ Phases (any failure raises, and the script exits non-zero):
               prints the steady and boundary wall times, the loop's slack
               reports, and K4's and K6's times and K6's work counts on the
               profiled iteration's own inputs
- 14. depth maps     2 of the CLI scene's train views with 16-bit depth PNGs
+ 14. configurations the switches that change what K1-K6 see, at full width:
+              one training step each under SH degree 4 (the fixture model
+              widened to 25 coefficients, 9 drawn from --seed), antialiasing,
+              precomputed colours and covariances, sparse Adam (moments of
+              Gaussians with radii 0 unmoved) and a non-identity exposure (its
+              gradient finite and nonzero), each with K1-K6 bitwise against
+              their twins on the step's inputs and the field gradients against
+              the all-twin path; then the training CLI for 110 iterations
+              (densify at 100, eval) with --sh_degree 4 from a degree-4
+              checkpoint (every step at active degree 4, a 72-column
+              snapshot), and with --antialiasing --optimizer_type sparse_adam
+              --train_test_exp --random_background, each followed by the
+              render CLI; steady iteration times beside phase 13's
+ 15. depth maps     2 of the CLI scene's train views with 16-bit depth PNGs
               (the fixture model's rendered inverse depth x 512), loaded by
               the port's Scene through the training CLI's ``-d``; 3
               iterations, each with a finite, nonzero depth term
- 15. COLMAP scene   the CLI scene's 10 views as a COLMAP capture written by
+ 16. COLMAP scene   the CLI scene's 10 views as a COLMAP capture written by
               the port's writers (1920x1080 JPEGs, 16-bit depth PNGs through a
               known affine, points3D.bin with the 500k means, observations);
               ``python -m gaussian_splatting_torch.make_depth_scale`` (every
@@ -67,12 +80,12 @@ Phases (any failure raises, and the script exits non-zero):
               default -r -1 (images resized to 1600x900), -d depths --eval,
               30 iterations (K1-K6 launch, finite nonzero depth terms); the
               render CLI on the test views
- 16. segscan        K7 on phase 8's expansion-order gradient rows (10 x ~1.76M,
+ 17. segscan        K7 on phase 8's expansion-order gradient rows (10 x ~1.76M,
               flagged at each Gaussian segment's first slot): one launch as
               its path, then bitwise against its twin and, at each segment's
               last slot, bitwise against K6's sums; timed and profiled, with
               its first design timed on the same rows
- 17. evaluation     the analytic "spheres" scene at JAX's defaults (100 train
+ 18. evaluation     the analytic "spheres" scene at JAX's defaults (100 train
               and 12 test views at 800x600 from 1600x1200 rays each, depth
               maps), shaded on the card once its float32 shader agrees with
               float64 on the CPU; the training CLI for 500 iterations with
@@ -82,7 +95,7 @@ Phases (any failure raises, and the script exits non-zero):
               iterations 1 and 500; ``metrics`` with LPIPS weights drawn from
               --seed (finite scores, a 1 dB PSNR gain); LPIPS on the card
               against the CPU.  Prints each step's wall time
- 18. multi-GPU      gshard at n = 4 ranks emulated in one process on the bench
+ 19. multi-GPU      gshard at n = 4 ranks emulated in one process on the bench
               scene: each stripe through K1-K6 bitwise against the twins
               (forward, and the backward of sum(colour) + sum(inverse depth))
               and the stitched image within 3e-5 of the single render, with
@@ -1034,22 +1047,32 @@ def train_setup(model_dir, seed, device="cuda"):
                 batches=batches, raster=raster, seed=seed, device=dev)
 
 
-def _field_grads(setup, view, kernels):
+def _field_grads(setup, view, kernels, state=None, raster=None, exposure=None):
     """The first step's loss differentiated to the (P, 10) blend fields
     through the render core and the untile (all kernels, or all twins), and
-    the pieces the kernel checks take apart."""
+    the pieces the kernel checks take apart.  ``state`` and ``raster``
+    default to the setup's; ``exposure`` (3, 4) is applied to the image
+    before the loss, as ``train_step`` applies it."""
     import torch
 
     from gaussian_splatting_torch.ops import instances as inst
     from gaussian_splatting_torch.ops import untile as ut
     from gaussian_splatting_torch.ops.losses import photometric_loss
-    from gaussian_splatting_torch.ops.preprocess import clip, preprocess
-    from gaussian_splatting_torch.ops.rasterize import _detached, _RasterCore, blend_fields
+    from gaussian_splatting_torch.ops.preprocess import clip
+    from gaussian_splatting_torch.ops.rasterize import (
+        _detached,
+        _RasterCore,
+        blend_fields,
+        project,
+    )
+    from gaussian_splatting_torch.train.step import apply_exposure
 
-    state, raster = setup["state"], setup["raster"]
+    state = state or setup["state"]
+    raster = raster or setup["raster"]
     model, cam, batch = state.model, setup["cams"][view].cam, setup["batches"][view]
     with torch.no_grad():
-        proj = preprocess(*model.activated_params(), cam, sh_degree=SH_DEGREE)
+        proj = project(*model.activated_params(), cam, sh_degree=model.max_sh_degree,
+                       cfg=raster)
     fields = blend_fields(proj).requires_grad_(True)
     gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
     capacity = inst.required_capacity(model.capacity, raster.instance_slack)
@@ -1058,15 +1081,18 @@ def _field_grads(setup, view, kernels):
     img = ut.untile_differentiable(packed5, grid_x=gx, grid_y=gy, tile_w=16, tile_h=16,
                                    width=WIDTH, height=HEIGHT, kernels=kernels)
     image = clip(img[:3] + img[3][None] * batch.bg_color[:, None, None], 0.0, 1.0)
+    if exposure is not None:
+        image = apply_exposure(image, exposure)
     loss = photometric_loss(image, batch.gt_image, 0.2)
     (d_fields,) = torch.autograd.grad(loss, fields)
     return d_fields, proj, fields.detach(), capacity, bool(overflow)
 
 
-def backward_inputs(setup, proj, fields, capacity, view=0):
+def backward_inputs(setup, proj, fields, capacity, view=0, exposure=None):
     """The blend backward's inputs on a training step of ``view``: the
     layout, K2's packed output, and the loss's gradient with respect to the
-    untiled image (K4 retiles it into K5's cotangent)."""
+    untiled image (K4 retiles it into K5's cotangent); ``exposure`` as in
+    ``_field_grads``."""
     import torch
 
     from gaussian_splatting_torch.ops import blend as bl
@@ -1074,6 +1100,7 @@ def backward_inputs(setup, proj, fields, capacity, view=0):
     from gaussian_splatting_torch.ops import untile as ut
     from gaussian_splatting_torch.ops.losses import photometric_loss
     from gaussian_splatting_torch.ops.preprocess import clip
+    from gaussian_splatting_torch.train.step import apply_exposure
 
     gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
     batch = setup["batches"][view]
@@ -1086,6 +1113,8 @@ def backward_inputs(setup, proj, fields, capacity, view=0):
         img = ut.untile(packed, **ukw, width=WIDTH, height=HEIGHT, cols=bl.CT_COLS)
     img.requires_grad_(True)
     image = clip(img[:3] + img[3][None] * batch.bg_color[:, None, None], 0.0, 1.0)
+    if exposure is not None:
+        image = apply_exposure(image, exposure)
     (d_img,) = torch.autograd.grad(photometric_loss(image, batch.gt_image, 0.2), img)
     return layout, args, packed, d_img, ukw
 
@@ -1556,7 +1585,8 @@ def make_cli_scene(root, model_dir, device="cuda"):
 
 class LoopProbe:
     """Instruments ``train.loop`` for one CLI run, restoring it on exit:
-    the host time at which each ``train_step`` is queued, one profiled
+    the host time at which each ``train_step`` is queued and the active SH
+    degree it runs at, one profiled
     steady step, and the synchronised wall time of each boundary operation
     (densify, opacity reset, eval, snapshot, checkpoint, slack probe,
     capacity growth)."""
@@ -1574,6 +1604,7 @@ class LoopProbe:
         self.profiled = None
         self.profile_ms = {}  # each kernel's device ms per launch in the profiled step
         self.inputs = {}  # K4's and K6's arguments in the profiled step
+        self.sh_degrees = []  # each step's active SH degree
 
     def __enter__(self):
         import torch
@@ -1601,6 +1632,7 @@ class LoopProbe:
             if self.first_step is None:
                 self.first_step = int(state.step)
             self.starts.append(time.perf_counter())
+            self.sh_degrees.append(state.model.sh_degree)
             if len(self.starts) == self.profile_iteration:
                 torch.cuda.synchronize()
                 held = []
@@ -1643,13 +1675,14 @@ class LoopProbe:
             setattr(owner, name, value)
         return False
 
-    def steady_ms(self):
+    def steady_ms(self, below=None):
         """Wall time of each steady iteration k (queue of step k to queue of
         step k + 1), leaving out the first epoch's uploads, the 100-iteration
-        boundaries and the iteration after each, and the profiled one."""
+        boundaries and the iteration after each, and the profiled one; with
+        ``below``, only k < below."""
         p = self.profile_iteration or -10
         return [(self.starts[k] - self.starts[k - 1]) * 1e3
-                for k in range(10, len(self.starts))
+                for k in range(10, min(len(self.starts), below or len(self.starts)))
                 if k % 100 not in (0, 1) and abs(k - p) > 1]
 
 
@@ -1750,7 +1783,9 @@ def train_cli_phase(root, scene_dir, seed, device="cuda"):
         print(f"  render CLI view {r['index']}: {r['seconds'] * 1e3:.1f} ms wall, slot demand "
               f"{r['num_instances']}, retries {r['retries']}")
     psnr_gain(scene_dir, out, device)
-    return launches, statistics.mean(steady)
+    first = probe.steady_ms(below=100)
+    print(f"steady iterations 10-99: mean {statistics.mean(first):.3f} ms over {len(first)}")
+    return launches, {"all": statistics.mean(steady), "10-99": statistics.mean(first)}
 
 
 def cli_kernel_times(probe):
@@ -1779,6 +1814,315 @@ def cli_kernel_times(probe):
                   f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (bytes)")
         segreduce_work(offsets, rows.shape[0])
     probe.inputs.clear()
+
+
+CONFIG_STEPS = ("SH degree 4", "antialiasing", "precomputed colours and covariances",
+                "sparse Adam", "exposure")
+CONFIG_CLI_ITERATIONS = 110  # through the densify at 100
+CONFIG_PROFILED_ITERATION = 105  # after the densify, as phase 13's 150
+CONFIG_EXPOSURE_SIGMA = 0.05  # the exposure's seeded shift from the identity
+CONFIG_DEADLINE_S = 420.0  # the whole phase; past it the script exits non-zero
+
+
+def configurations_phase(root, model_dir, scene_dir, seed, cli_steady, device="cuda"):
+    """The training switches that change what K1-K6 receive, at full width.
+    (a) On the fixture's training start, one step under each of
+    ``CONFIG_STEPS`` alone: K1-K6 bitwise against their twins on the step's
+    own inputs, the field gradients within TOL_GRAD of the all-twin path,
+    then the step itself.  (b) The training CLI on the CLI scene twice,
+    each with the render CLI after it: ``--sh_degree 4`` from a degree-4
+    checkpoint (every step at active degree 4; a 72-column snapshot), and
+    ``--antialiasing --optimizer_type sparse_adam --train_test_exp
+    --random_background`` through its densify and eval.  The launches of
+    the steps, the CLI runs and the render CLI runs are the phase's."""
+    import threading
+
+    import torch
+
+    from gaussian_splatting_torch import _kernels
+
+    phase("configurations")
+    t_phase = time.perf_counter()
+    watchdog = threading.Timer(CONFIG_DEADLINE_S, _past_deadline,
+                               ("configurations", CONFIG_DEADLINE_S))
+    watchdog.daemon = True
+    watchdog.start()
+    total = {name: 0 for name in _kernels.KERNELS}
+
+    def counted(fn):
+        _kernels.reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        for name, n in _kernels.launches.items():
+            total[name] += n
+        return result
+
+    setup = train_setup(model_dir, seed, device)
+    for name in CONFIG_STEPS:
+        configured_step(setup, name, seed, counted)
+    del setup
+    for run in ("A", "B"):
+        config_cli_run(root, scene_dir, seed, run, cli_steady, counted, device)
+    watchdog.cancel()
+    print(f"launches during the configurations phase: {total}; phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    _check_launches(total, _kernels.TRAIN_KERNELS, "the configurations phase")
+    return total
+
+
+def model_copy(model, features_rest=None, sh_degree=None):
+    """A copy of ``model``; with ``features_rest`` (its coefficients above
+    the DC one) of ``sh_degree``, maximal and active."""
+    from gaussian_splatting_torch.models.gaussians import PARAM_NAMES, STAT_NAMES, GaussianModel
+
+    t = {n: getattr(model, n).detach().clone() for n in PARAM_NAMES + ("alive",) + STAT_NAMES}
+    if features_rest is not None:
+        t["features_rest"] = features_rest
+    degree = model.max_sh_degree if sh_degree is None else sh_degree
+    return GaussianModel(**{n: t[n] for n in PARAM_NAMES}, alive=t["alive"],
+                         max_sh_degree=degree, sh_degree=degree,
+                         spatial_lr_scale=model.spatial_lr_scale,
+                         stats={n: t[n] for n in STAT_NAMES})
+
+
+def widen_to_degree_4(model, seed):
+    """``model`` with 25 SH coefficients per channel at active degree 4: its
+    16, then 9 drawn from ``seed`` with the spread of its degree-3 ones on
+    the live slots."""
+    import torch
+
+    alive = model.alive
+    rest = model.features_rest.detach()
+    sigma = float(rest[alive][:, 8:15].std())  # coefficients 9..15
+    g = torch.Generator(device=rest.device).manual_seed(seed)
+    new = torch.randn((rest.shape[0], 9, 3), generator=g, device=rest.device) * sigma
+    new = new * alive[:, None, None]
+    print(f"  degree-4 coefficients drawn at sigma {sigma:.6f} (the degree-3 ones' spread)")
+    return model_copy(model, torch.cat([rest, new], dim=1), sh_degree=4)
+
+
+def configured_step(setup, name, seed, counted):
+    """One full-width training step of view 0 under configuration ``name``
+    from the setup's start: K1-K6 bitwise against their twins on the step's
+    inputs and the field gradients against the all-twin path, then the step
+    (counted), and the configuration's own checks."""
+    import dataclasses
+
+    import torch
+
+    from gaussian_splatting_torch.config import OptimizationConfig
+    from gaussian_splatting_torch.ops.rasterize import render
+    from gaussian_splatting_torch.train.optim import B1
+    from gaussian_splatting_torch.train.step import init_train_state, train_step
+
+    print(f"configuration: {name}")
+    t0 = time.perf_counter()
+    base, dev = setup["state"].model, setup["device"]
+    raster, opt, use_exposure = setup["raster"], OptimizationConfig(), False
+    view, cam, batch = 0, setup["cams"][0].cam, setup["batches"][0]
+    model = widen_to_degree_4(base, seed) if name == "SH degree 4" else model_copy(base)
+    state = init_train_state(model, num_images=len(setup["cams"]))
+    if name == "antialiasing":
+        raster = dataclasses.replace(raster, antialiasing=True)
+    elif name == "precomputed colours and covariances":
+        raster = dataclasses.replace(raster, convert_SHs_python=True, compute_cov3D_python=True)
+    elif name == "sparse Adam":
+        opt = OptimizationConfig(optimizer_type="sparse_adam")
+    elif name == "exposure":
+        use_exposure = True
+        g = torch.Generator(device=dev).manual_seed(seed)
+        state.exposures += CONFIG_EXPOSURE_SIGMA * torch.randn(
+            state.exposures.shape, generator=g, device=dev)
+    exposure = state.exposures[view] if use_exposure else None
+
+    if name == "SH degree 4":
+        with torch.no_grad():
+            img3, img4 = (render(*m.activated_params(), cam, batch.bg_color,
+                                 sh_degree=m.max_sh_degree, cfg=raster, inference=True).image
+                          for m in (base, model))
+        change = float((img4 - img3).abs().max())
+        print(f"  image at degree 4 against degree 3: max |diff| {change:.6f}")
+        if not change > 0:
+            raise RuntimeError("the degree-4 terms did not reach the image")
+
+    grads = [_field_grads(setup, view, kernels, state, raster, exposure)
+             for kernels in (True, False)]
+    (d_fields, proj, fields, capacity, overflow), (d_fields_p, *_) = grads
+    del grads
+    if overflow:
+        raise RuntimeError(f"{name}: the step's render overflowed")
+    scale = d_fields_p.abs().amax(dim=0) + 1e-30
+    err = float(((d_fields - d_fields_p).abs() / scale).max())
+    print(f"  field gradients, kernel path vs all-twin path: max scaled diff {err:.3e} "
+          f"(tolerance {TOL_GRAD})")
+    if not err <= TOL_GRAD:
+        raise RuntimeError(f"{name}: kernel gradients disagree with the all-twin path")
+    sizes = step_kernels_bitwise(setup, view, proj, fields, capacity, exposure)
+    print(f"  K1-K6 bitwise equal to their twins on the step's inputs: "
+          + ", ".join(f"{k} {v} values" for k, v in sizes.items()))
+
+    before = {k: v.clone() for k, v in state.tensors().items()}
+    t1 = time.perf_counter()
+    _, m = counted(lambda: train_step(state, cam, batch, opt=opt, raster=raster,
+                                      use_exposure=use_exposure))
+    vals = m["packed"].tolist()
+    print(f"  step: {(time.perf_counter() - t1) * 1e3:.2f} ms wall (synchronised), loss "
+          f"{vals[0]:.6f}, slot demand {int(vals[4])}, overflow {bool(vals[3])}")
+    if vals[3] or not math.isfinite(vals[0]):
+        raise RuntimeError(f"{name}: the step overflowed or its loss is not finite")
+    after = state.tensors()
+    if name == "sparse Adam":
+        hidden = proj.radii == 0
+        live_hidden = int((hidden & base.alive).sum())
+        moved = [k for k, v in after.items() if k.startswith("adam.") and v.dim() > 0
+                 and not torch.equal(v[hidden], before[k][hidden])]
+        print(f"  sparse Adam: {live_hidden} live Gaussians with radii 0; moments moved on "
+              f"them: {moved or 'none'}")
+        if moved or live_hidden == 0:
+            raise RuntimeError("sparse Adam moved the moments of invisible Gaussians")
+    if name == "exposure":
+        g_exp = after["exp_adam.mu.exposures"][view] / (1.0 - B1)  # the first step's
+        print(f"  exposure gradient: max |g| {float(g_exp.abs().max()):.6e}, finite "
+              f"{bool(torch.isfinite(g_exp).all())}")
+        if not bool(torch.isfinite(g_exp).all()) or not float(g_exp.abs().max()) > 0:
+            raise RuntimeError("the exposure gradient is not finite and nonzero")
+    print(f"  configuration done in {time.perf_counter() - t0:.3f} s")
+
+
+def step_kernels_bitwise(setup, view, proj, fields, capacity, exposure=None):
+    """K1-K6 against their twins on one training step's inputs, bitwise: K1
+    on its expansion table, K2 on its layout, K3 on K2's output, K4 on the
+    loss's gradient with respect to the untiled planes, K5 on K4's output,
+    K6 on K5's rows in expansion order.  Returns the values compared."""
+    import torch
+
+    from gaussian_splatting_torch.ops import blend as bl
+    from gaussian_splatting_torch.ops import expand as ex
+    from gaussian_splatting_torch.ops import instances as inst
+    from gaussian_splatting_torch.ops import segreduce as sr
+    from gaussian_splatting_torch.ops import untile as ut
+    from gaussian_splatting_torch.ops.rasterize import expansion_order
+
+    layout, args, packed, d_img, ukw = backward_inputs(setup, proj, fields, capacity, view,
+                                                       exposure)
+    gx = ukw["grid_x"]
+    ikw = dict(ukw, width=WIDTH, height=HEIGHT, cols=bl.CT_COLS)
+    sizes = {}
+
+    def same(name, got, want):
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise RuntimeError(f"{name} kernel disagrees with its plain version")
+        sizes[name] = sum(a.numel() for a, _ in pairs)
+
+    with torch.no_grad():
+        table, _ = inst.build_table(proj)
+        ekw = dict(capacity=inst.internal_capacity(capacity), grid_x=gx,
+                   num_tiles=gx * ukw["grid_y"])
+        same("expand", ex.expand_instances(table, **ekw), ex.expand_instances_plain(table, **ekw))
+        same("blend_forward", packed, bl.blend_forward_plain(*args, grid_x=gx))
+        same("untile", ut.untile(packed, **ikw), ut.untile_plain(packed, **ikw))
+        ct = ut.retile(d_img, **ukw)
+        same("retile", ct, ut.retile_plain(d_img, **ukw))
+        n = int(layout.n_valid)
+        d_sorted = bl.blend_backward(*args, packed, ct, grid_x=gx)
+        same("blend_backward", d_sorted[:n],
+             bl.blend_backward_plain(*args, packed, ct, grid_x=gx)[:n])
+        d_exp = expansion_order(d_sorted, layout)
+        same("segment_reduce", sr.segment_reduce_rows(d_exp, layout.seg_offsets),
+             sr.segment_reduce_rows_plain(d_exp, layout.seg_offsets))
+    return sizes
+
+
+def config_cli_run(root, scene_dir, seed, run, cli_steady, counted, device="cuda"):
+    """Run A or B of the configurations phase: the training CLI for
+    CONFIG_CLI_ITERATIONS on the CLI scene (densify at 100, eval, snapshot
+    and checkpoint at the end) under ``LoopProbe``, then the render CLI on
+    the test views.  A starts from a degree-4 checkpoint at iteration 0
+    (``save_checkpoint`` of the scene's create_from_pcd model at degree 4,
+    maximal and active) and must run every step at active degree 4 and
+    snapshot 72 ``f_rest_*`` columns; B trains with --antialiasing
+    --optimizer_type sparse_adam --train_test_exp --random_background."""
+    import statistics
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch import render as render_cli
+    from gaussian_splatting_torch.config import ModelConfig
+    from gaussian_splatting_torch.scene import Scene
+    from gaussian_splatting_torch.train import cli
+    from gaussian_splatting_torch.train.loop import save_checkpoint
+    from gaussian_splatting_torch.train.step import init_train_state
+
+    it = CONFIG_CLI_ITERATIONS
+    out = os.path.join(root, f"config_run_{run}")
+    argv = ["-s", scene_dir, "-m", out, "-r", "1", "--eval",
+            "--densify_from_iter", "50", "--densification_interval", "100",
+            "--densify_until_iter", "301", "--opacity_reset_interval", "200",
+            "--iterations", str(it), "--test_iterations", str(it), "--save_iterations", str(it),
+            "--checkpoint_iterations", str(it), "--disable_viewer", "--seed", str(seed),
+            "--device", device]
+    if run == "A":
+        ckpt = os.path.join(root, "config_start_sh4.pth")
+        scene = Scene(ModelConfig(source_path=scene_dir, sh_degree=4, resolution=1, eval=True),
+                      shuffle=False, device=device)
+        scene.gaussians.sh_degree = 4
+        save_checkpoint(ckpt, init_train_state(scene.gaussians, len(scene.get_train_cameras())),
+                        0)
+        del scene
+        argv += ["--sh_degree", "4", "--start_checkpoint", ckpt]
+        what = "--sh_degree 4 from a degree-4 checkpoint"
+    else:
+        argv += ["--antialiasing", "--optimizer_type", "sparse_adam", "--train_test_exp",
+                 "--random_background"]
+        what = "--antialiasing --optimizer_type sparse_adam --train_test_exp --random_background"
+    with LoopProbe(CONFIG_PROFILED_ITERATION) as probe:
+        t0 = time.perf_counter()
+        counted(lambda: cli.main(argv))
+        wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)  # this run's, as ``counted`` left them
+    losses = [float(p[0]) for p in probe.packed]
+    steady, first = probe.steady_ms(), probe.steady_ms(below=100)
+    print(f"run {run} ({what}): {len(probe.starts)} iterations from {probe.first_step} in "
+          f"{wall:.3f} s wall (scene load included); {len(steady)} steady iterations: mean "
+          f"{statistics.mean(steady):.3f} ms, stdev {statistics.stdev(steady):.3f}, median "
+          f"{statistics.median(steady):.3f}; iterations 10-99 {statistics.mean(first):.3f} ms "
+          f"(phase train CLI, same run: {cli_steady['all']:.3f} ms, iterations 10-99 "
+          f"{cli_steady['10-99']:.3f}); loss {losses[0]:.6f} -> {losses[-1]:.6f}; launches "
+          f"{launches}")
+    for b_it, name, ms in probe.boundaries:
+        print(f"  boundary at iteration {b_it}: {name} {ms:.3f} ms wall (synchronised)")
+    if len(probe.starts) != it or probe.first_step != 0:
+        raise RuntimeError(f"run {run}: {len(probe.starts)} steps from {probe.first_step}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"run {run}: a loss is not finite")
+    names = [name for _, name, _ in probe.boundaries]
+    if "densify_step" not in names or "report_psnr" not in names:
+        raise RuntimeError(f"run {run} did not densify and evaluate: {names}")
+    snapshot = os.path.join(out, "point_cloud", f"iteration_{it}", "point_cloud.ply")
+    for f in (snapshot, os.path.join(out, f"chkpnt{it}.pth"),
+              os.path.join(out, "exposure.json")):
+        if not os.path.exists(f):
+            raise RuntimeError(f"run {run} did not write {f}")
+    if run == "A":
+        degrees = sorted(set(probe.sh_degrees))
+        with open(snapshot, "rb") as f:
+            header = f.read(4096).split(b"end_header")[0]
+        columns = header.count(b" f_rest_")
+        print(f"  active SH degrees of the steps: {degrees}; the snapshot has {columns} "
+              f"f_rest columns")
+        if degrees != [4] or columns != 72:
+            raise RuntimeError("run A did not train at degree 4 into a degree-4 snapshot")
+    records = counted(lambda: render_cli.main(["-m", out, "--skip_train", "--device", device]))
+    if len(records) != 2:
+        raise RuntimeError(f"run {run}: expected 2 rendered test views, got {len(records)}")
+    for r in records:
+        print(f"  render CLI view {r['index']}: {r['seconds'] * 1e3:.1f} ms wall, slot demand "
+              f"{r['num_instances']}, retries {r['retries']}")
+    # A gates on a gain; B's random backgrounds train against black test views,
+    # so its PSNR is only reported
+    psnr_gain(scene_dir, out, device, iteration=it,
+              min_gain=0.0 if run == "A" else -math.inf)
 
 
 def depth_maps_phase(root, cli_scene_dir, model_dir, seed, device="cuda"):
@@ -2449,7 +2793,7 @@ def loss_order_step(state, cam, batch, *, opt, raster):
     ``train_step`` are those the loss's summation order alone opens."""
     import torch
 
-    from gaussian_splatting_torch.ops.losses import fused_ssim_weighted_sum
+    from gaussian_splatting_torch.ops.losses import absolute, fused_ssim_weighted_sum
     from gaussian_splatting_torch.ops.rasterize import render
     from gaussian_splatting_torch.train.step import apply_gradients, step_metrics
 
@@ -2464,7 +2808,7 @@ def loss_order_step(state, cam, batch, *, opt, raster):
         image = out.image * batch.alpha_mask
         gt = batch.gt_image * batch.alpha_mask
         weight = torch.full(image.shape[1:], 1.0 / denom, dtype=torch.float32, device=dev)
-        l1 = torch.sum(torch.abs(image - gt)) / denom
+        l1 = torch.sum(absolute(image - gt)) / denom
         ssim = fused_ssim_weighted_sum(image, gt, weight)
         loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (1.0 - ssim)
         wrt = list(leaves.values()) + [tap]
@@ -2686,12 +3030,19 @@ def cli_child(mode, argv):
     }))
 
 
-def psnr_gain(scene_dir, out, device="cuda"):
-    """Mean test-view PSNR of the iteration-300 snapshot against that of the
-    initial create_from_pcd model, both rendered against the test PNGs."""
+def psnr_gain(scene_dir, out, device="cuda", iteration=CLI_ITERATIONS,
+              min_gain=CLI_PSNR_GAIN_DB):
+    """Mean test-view PSNR of the ``iteration`` snapshot against that of the
+    initial create_from_pcd model, both rendered against the test PNGs;
+    fails unless it gained ``min_gain`` dB.  Returns both."""
     import torch
 
-    from gaussian_splatting_torch.config import ModelConfig, RasterizeConfig, load_config
+    from gaussian_splatting_torch.config import (
+        ModelConfig,
+        PipelineConfig,
+        RasterizeConfig,
+        load_config,
+    )
     from gaussian_splatting_torch.data.dataset import detect_and_load_scene
     from gaussian_splatting_torch.models.gaussians import create_from_pcd
     from gaussian_splatting_torch.render import render_camera
@@ -2700,11 +3051,12 @@ def psnr_gain(scene_dir, out, device="cuda"):
     from gaussian_splatting_torch.utils.image import psnr
 
     cfg = load_config(ModelConfig, os.path.join(out, "cfg_args.json"))
-    snap = Scene(cfg, load_iteration=CLI_ITERATIONS, shuffle=False, device=device)
+    snap = Scene(cfg, load_iteration=iteration, shuffle=False, device=device)
     pc = detect_and_load_scene(scene_dir).point_cloud
-    init = create_from_pcd(pc.points, pc.colors, max_sh_degree=SH_DEGREE,
+    init = create_from_pcd(pc.points, pc.colors, max_sh_degree=cfg.sh_degree,
                            spatial_lr_scale=snap.cameras_extent, device=device)
-    raster = load_raster_state(out, RasterizeConfig())
+    pipe = load_config(PipelineConfig, os.path.join(out, "pipe_args.json"))
+    raster = load_raster_state(out, RasterizeConfig(antialiasing=pipe.antialiasing))
     bg = torch.zeros(3, device=device)
 
     def mean_psnr(model):
@@ -2720,10 +3072,11 @@ def psnr_gain(scene_dir, out, device="cuda"):
     after, a_views = mean_psnr(snap.gaussians)
     print("expand: bitwise equal to its twin on the tables of both models' test views")
     print(f"test-view PSNR: initial model {before:.4f} dB {b_views}, iteration "
-          f"{CLI_ITERATIONS} snapshot {after:.4f} dB {a_views}: gain {after - before:.4f} dB "
-          f"(required {CLI_PSNR_GAIN_DB})")
-    if not after - before >= CLI_PSNR_GAIN_DB:
-        raise RuntimeError("training did not raise the test-view PSNR by 1 dB")
+          f"{iteration} snapshot {after:.4f} dB {a_views}: gain {after - before:.4f} dB "
+          f"(required {min_gain})")
+    if not after - before >= min_gain:
+        raise RuntimeError(f"training did not raise the test-view PSNR by {min_gain} dB")
+    return before, after
 
 
 def check_expand(model, cam, raster):
@@ -2733,11 +3086,11 @@ def check_expand(model, cam, raster):
 
     from gaussian_splatting_torch.ops import expand as ex
     from gaussian_splatting_torch.ops import instances as inst
-    from gaussian_splatting_torch.ops.preprocess import preprocess
+    from gaussian_splatting_torch.ops.rasterize import project
 
     with torch.no_grad():
-        table, _ = inst.build_table(preprocess(*model.activated_params(), cam,
-                                               sh_degree=model.max_sh_degree))
+        table, _ = inst.build_table(project(*model.activated_params(), cam,
+                                            sh_degree=model.max_sh_degree, cfg=raster))
     cap = inst.internal_capacity(inst.required_capacity(model.capacity, raster.instance_slack))
     gx, gy = -(-cam.width // 16), -(-cam.height // 16)
     ekw = dict(capacity=cap, grid_x=gx, num_tiles=gx * gy)
@@ -2806,7 +3159,9 @@ def main():
     del setup
     bench_phase()
     scene_dir = make_cli_scene(root, model_dir)
-    launches["train CLI"], cli_steady_ms = train_cli_phase(root, scene_dir, args.seed)
+    launches["train CLI"], cli_steady = train_cli_phase(root, scene_dir, args.seed)
+    launches["configurations"] = configurations_phase(root, model_dir, scene_dir, args.seed,
+                                                      cli_steady)
     launches["depth maps"] = depth_maps_phase(root, scene_dir, model_dir, args.seed)
     launches["COLMAP scene"] = colmap_scene_phase(root, scene_dir, model_dir, args.seed)
     launches["segscan"], row = segscan_phase(tctx, segscan_first_lib)
@@ -2814,7 +3169,7 @@ def main():
     del tctx
     launches["evaluation"] = evaluation_phase(root, args.seed)
     launches["multi-GPU"] = multi_gpu_phase(root, model_dir, scene_dir, args.seed,
-                                            cli_steady_ms)
+                                            cli_steady["all"])
     shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"kernels": add_launches(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -161,9 +161,14 @@ def load_model_ply(
     path: str, *, max_sh_degree: int, capacity: Optional[int] = None, device=None
 ) -> GaussianModel:
     """Read a ``point_cloud.ply`` snapshot into a model padded to the JAX
-    package's capacity (``int(n * 1.2) + 1024``)."""
+    package's capacity (``int(n * 1.2) + 1024``).  A snapshot of another SH
+    degree than ``max_sh_degree`` raises ``ValueError``, as in JAX."""
     data = load_gaussian_ply(path)
     n = data["means3d"].shape[0]
+    k = data["features_rest"].shape[1] + 1
+    if k != num_sh_coeffs(max_sh_degree):
+        raise ValueError(f"{path} holds {k} SH coefficients per channel, but "
+                         f"max_sh_degree {max_sh_degree} needs {num_sh_coeffs(max_sh_degree)}")
     capacity = capacity or int(n * 1.2) + 1024
     model = GaussianModel.empty(capacity, max_sh_degree, device=device)
     with torch.no_grad():

@@ -23,8 +23,15 @@ WINDOW = 11
 SIGMA = 1.5
 
 
+def absolute(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` with ``jnp.abs``'s gradient: +1 at 0 (``torch.abs``'s is 0).
+    An L1 term's ties (a pixel rendered exactly as its target, such as
+    empty background on a black one) then pass JAX's gradient on."""
+    return torch.where(x >= 0, x, -x)
+
+
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(pred - target))
+    return torch.mean(absolute(pred - target))
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -168,4 +175,4 @@ def depth_l1_loss(
     invdepth: torch.Tensor, mono_invdepth: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
     """Masked mean absolute inverse-depth error."""
-    return torch.mean(torch.abs(invdepth - mono_invdepth) * mask)
+    return torch.mean(absolute(invdepth - mono_invdepth) * mask)

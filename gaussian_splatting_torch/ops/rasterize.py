@@ -174,22 +174,8 @@ def _render(
     grid_x = (W + tile_w - 1) // tile_w
     grid_y = (H + tile_h - 1) // tile_h
 
-    # Debug hooks (reference --compute_cov3D_python / --convert_SHs_python):
-    # compute the covariance / colours up front and feed them back in.
-    cov3d_precomp = (
-        build_covariance(scales, quats, scale_modifier)
-        if cfg.compute_cov3D_python else None
-    )
-    colors_precomp = (
-        sh_to_color(sh_degree, sh, means3d, cam.campos)
-        if cfg.convert_SHs_python else None
-    )
-    proj = preprocess(
-        means3d, scales, quats, opacities, sh, cam,
-        sh_degree=sh_degree, tile_w=tile_w, tile_h=tile_h,
-        scale_modifier=scale_modifier, antialiasing=cfg.antialiasing,
-        cov3d_precomp=cov3d_precomp, colors_precomp=colors_precomp,
-    )
+    proj = project(means3d, scales, quats, opacities, sh, cam, sh_degree=sh_degree, cfg=cfg,
+                   scale_modifier=scale_modifier)
     if means2d_tap is not None:
         ndc_scale = torch.tensor([0.5 * W, 0.5 * H], dtype=torch.float32,
                                  device=means3d.device)
@@ -225,6 +211,29 @@ def _render(
         visibility=proj.radii > 0,
         overflow=overflow,
         num_instances=num_instances,
+    )
+
+
+def project(
+    means3d, scales, quats, opacities, sh, cam, *, sh_degree, cfg=RasterizeConfig(),
+    scale_modifier=1.0,
+) -> ProjectedGaussians:
+    """``preprocess`` under ``cfg``'s switches: the antialiasing filter, and
+    the debug hooks (reference --compute_cov3D_python / --convert_SHs_python),
+    which compute the covariances / colours up front and feed them back in."""
+    cov3d_precomp = (
+        build_covariance(scales, quats, scale_modifier)
+        if cfg.compute_cov3D_python else None
+    )
+    colors_precomp = (
+        sh_to_color(sh_degree, sh, means3d, cam.campos)
+        if cfg.convert_SHs_python else None
+    )
+    return preprocess(
+        means3d, scales, quats, opacities, sh, cam,
+        sh_degree=sh_degree, tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+        scale_modifier=scale_modifier, antialiasing=cfg.antialiasing,
+        cov3d_precomp=cov3d_precomp, colors_precomp=colors_precomp,
     )
 
 

@@ -1,4 +1,4 @@
-"""Real spherical harmonics for view-dependent colour (degrees 0-3).
+"""Real spherical harmonics for view-dependent colour (degrees 0-4).
 
 Counterpart of ``gaussian_splatting_tpu/ops/sh.py`` (the reference's
 ``computeColorFromSH``): evaluate along the normalized camera -> Gaussian
@@ -28,7 +28,18 @@ SH_C3 = (
     1.445305721320277,
     -0.5900435899266435,
 )
-MAX_DEGREE = 3
+SH_C4 = (
+    2.5033429417967046,
+    -1.7701307697799304,
+    0.9461746957575601,
+    -0.6690465435572892,
+    0.10578554691520431,
+    -0.6690465435572892,
+    0.47308734787878004,
+    -1.7701307697799304,
+    0.6258357354491761,
+)
+MAX_DEGREE = 4
 
 
 def num_sh_coeffs(degree: int) -> int:
@@ -72,6 +83,21 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
                     + SH_C3[5] * z * (xx - yy) * sh[..., 14, :]
                     + SH_C3[6] * x * (xx - 3.0 * yy) * sh[..., 15, :]
                 )
+                if deg > 3:
+                    result = (
+                        result
+                        + SH_C4[0] * xy * (xx - yy) * sh[..., 16, :]
+                        + SH_C4[1] * yz * (3.0 * xx - yy) * sh[..., 17, :]
+                        + SH_C4[2] * xy * (7.0 * zz - 1.0) * sh[..., 18, :]
+                        + SH_C4[3] * yz * (7.0 * zz - 3.0) * sh[..., 19, :]
+                        + SH_C4[4] * (zz * (35.0 * zz - 30.0) + 3.0) * sh[..., 20, :]
+                        + SH_C4[5] * xz * (7.0 * zz - 3.0) * sh[..., 21, :]
+                        + SH_C4[6] * (xx - yy) * (7.0 * zz - 1.0) * sh[..., 22, :]
+                        + SH_C4[7] * xz * (xx - 3.0 * yy) * sh[..., 23, :]
+                        + SH_C4[8]
+                        * (xx * (xx - 3.0 * yy) - yy * (3.0 * xx - yy))
+                        * sh[..., 24, :]
+                    )
     return result
 
 
@@ -87,3 +113,8 @@ def sh_to_color(
 def rgb_to_sh(rgb):
     """RGB in [0, 1] -> DC coefficient (tensors or numpy arrays)."""
     return (rgb - 0.5) / SH_C0
+
+
+def sh_to_rgb(sh):
+    """DC coefficient -> RGB (tensors or numpy arrays)."""
+    return sh * SH_C0 + 0.5

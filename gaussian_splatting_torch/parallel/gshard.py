@@ -32,7 +32,7 @@ from gaussian_splatting_torch.models.gaussians import PARAM_NAMES, STAT_NAMES, G
 from gaussian_splatting_torch.ops import blend as bl
 from gaussian_splatting_torch.ops.camera_math import CameraParams
 from gaussian_splatting_torch.ops.expand import BIG
-from gaussian_splatting_torch.ops.losses import fused_ssim_weighted_sum
+from gaussian_splatting_torch.ops.losses import absolute, fused_ssim_weighted_sum
 from gaussian_splatting_torch.ops.preprocess import (
     ProjectedGaussians,
     clip,
@@ -277,7 +277,7 @@ def gshard_train_step(
         weight = (F.pad(rows_valid.to(torch.float32), (HALO, HALO))[:, None]
                   * torch.ones((1, W), device=dev) / (3.0 * H * W))
         ssim_val = coll.all_reduce_sum(fused_ssim_weighted_sum(pred_ext, gt_ext, weight))
-        l1 = coll.all_reduce_sum(torch.sum(torch.abs(img_s - gt_s))) / (3.0 * H * W)
+        l1 = coll.all_reduce_sum(torch.sum(absolute(img_s - gt_s))) / (3.0 * H * W)
         loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (1.0 - ssim_val)
         depth_loss = torch.zeros((), dtype=torch.float32, device=dev)
         if use_depth:
@@ -285,7 +285,7 @@ def gshard_train_step(
                          lr_final=opt.depth_l1_weight_final, max_steps=opt.iterations)
             dmask = F.pad(batch.depth_mask.expand(H, W).to(torch.float32), (0, 0, 0, bottom))
             dgt = F.pad(batch.invdepth_gt.expand(H, W), (0, 0, 0, bottom))
-            err = (torch.abs(invd - dgt[y0 : y0 + S]) * dmask[y0 : y0 + S]
+            err = (absolute(invd - dgt[y0 : y0 + S]) * dmask[y0 : y0 + S]
                    * rows_valid[:, None])
             depth_loss = w * (coll.all_reduce_sum(torch.sum(err)) / (H * W))
             loss = loss + depth_loss

@@ -266,6 +266,9 @@ def train(
     first_iter = 0
     if start_checkpoint:
         state, first_iter = load_checkpoint(start_checkpoint, device=dev)
+        if state.model.max_sh_degree != model_cfg.sh_degree:
+            raise ValueError(f"{start_checkpoint} holds a model of SH degree "
+                             f"{state.model.max_sh_degree}, not {model_cfg.sh_degree}")
         print(f"Resumed from {start_checkpoint} at iteration {first_iter}")
 
     # size the instance buffer from measured demand so the first steps fit

@@ -109,13 +109,14 @@ def test_untile_kernel_matches_plain(cuda):
     assert torch.equal(out, ut.untile_plain(packed, **kw))
 
 
+@pytest.mark.parametrize("sh_degree", [3, 4])
 @pytest.mark.parametrize("antialiasing", [False, True])
-def test_render_kernels_match_plain_path(cuda, antialiasing):
-    s, _ = _scene_proj(cuda)
+def test_render_kernels_match_plain_path(cuda, antialiasing, sh_degree):
+    s, _ = _scene_proj(cuda, sh_degree)
     cfg = RasterizeConfig(antialiasing=antialiasing)
     args = (s.means3d, s.scales, s.quats, s.opacities, s.sh, s.cam, s.bg)
-    fast = render(*args, sh_degree=3, cfg=cfg, inference=True)
-    plain = _render(*args, sh_degree=3, cfg=cfg, kernels=False)
+    fast = render(*args, sh_degree=sh_degree, cfg=cfg, inference=True)
+    plain = _render(*args, sh_degree=sh_degree, cfg=cfg, kernels=False)
     assert not bool(fast.overflow)
     for name in ("image", "invdepth", "final_T"):
         torch.testing.assert_close(getattr(fast, name), getattr(plain, name),
@@ -344,6 +345,69 @@ def test_render_gradients_kernels_match_plain_path(cuda):
     for a, b in zip(fast, plain):
         scale = float(b.abs().max()) + 1e-12
         assert float((a - b).abs().max()) <= 3e-4 * scale
+
+
+def test_train_step_sparse_adam_exposure_kernels_match_plain_path(cuda, monkeypatch):
+    """One training step under sparse Adam with a non-identity exposure,
+    through the kernels and through their twins (``_render(kernels=False)``
+    in the step's place): the same visible rows, Adam moments within 3e-4
+    of each leaf's largest, the exposure's gradient finite and nonzero, and
+    the moments of rows with ``radii == 0`` unmoved."""
+    import functools
+
+    from gaussian_splatting_torch.config import OptimizationConfig
+    from gaussian_splatting_torch.models.gaussians import GaussianModel
+    from gaussian_splatting_torch.train import step as tstep
+    from gaussian_splatting_torch.utils.testing import random_arrays
+
+    means, scales, quats, opac, sh = (torch.from_numpy(a).to(cuda) for a in random_arrays(
+        3000, sh_degree=3, seed=3, scale_range=(0.005, 0.03)))
+    means[:300] += 40.0  # off screen: radii 0
+    g = torch.Generator(device=cuda).manual_seed(2)
+    gt = torch.rand((3, H, W), generator=g, device=cuda)
+    batch = tstep.StepBatch(gt, torch.ones((1, H, W), device=cuda),
+                            torch.zeros((H, W), device=cuda), torch.zeros((H, W), device=cuda),
+                            torch.tensor(1, device=cuda), torch.zeros(3, device=cuda))
+    cam = random_scene(4, width=W, height=H, seed=3, device=cuda).cam
+    opt = OptimizationConfig(optimizer_type="sparse_adam")
+    exposure_shift = 0.05 * torch.randn((3, 4), generator=g, device=cuda)
+
+    def run(kernels):
+        model = GaussianModel(means.clone(), sh[:, :1].clone(), sh[:, 1:].clone(),
+                              torch.log(opac / (1 - opac)), torch.log(scales), quats.clone(),
+                              torch.ones(3000, dtype=torch.bool, device=cuda),
+                              max_sh_degree=3, sh_degree=3)
+        state = tstep.init_train_state(model, num_images=2)
+        state.exposures[1] += exposure_shift
+        before = {k: v.clone() for k, v in state.tensors().items()}
+        if not kernels:
+            monkeypatch.setattr(tstep, "render", functools.partial(_render, kernels=False))
+        state, m = tstep.train_step(state, cam, batch, opt=opt, raster=RasterizeConfig(),
+                                    use_exposure=True)
+        monkeypatch.undo()
+        return state, m, before
+
+    counts = dict(_kernels.launches)
+    fast, m_fast, before = run(True)
+    torch.cuda.synchronize()
+    for name in _kernels.TRAIN_KERNELS:
+        assert _kernels.launches[name] > counts[name], name
+    plain, m_plain, _ = run(False)
+    assert not bool(m_fast["overflow"]) and not bool(m_plain["overflow"])
+    assert abs(float(m_fast["loss"]) - float(m_plain["loss"])) <= 1e-6
+    assert torch.equal(fast.model.max_radii2d, plain.model.max_radii2d)
+    hidden = fast.model.max_radii2d == 0
+    assert 300 <= int(hidden.sum()) < 3000
+    for k, v in fast.tensors().items():
+        if k.startswith("adam.") and v.dim() > 0:
+            ref = plain.tensors()[k]
+            assert float((v - ref).abs().max()) <= 3e-4 * (float(ref.abs().max()) + 1e-30), k
+            assert torch.equal(v[hidden], before[k][hidden]), k
+    g_exp = fast.exp_adam.mu["exposures"][1] / 0.1
+    assert bool(torch.isfinite(g_exp).all()) and float(g_exp.abs().max()) > 0
+    ref = plain.exp_adam.mu["exposures"]
+    assert float((fast.exp_adam.mu["exposures"] - ref).abs().max()) <= 3e-4 * float(
+        ref.abs().max())
 
 
 def test_segscan_kernel_matches_plain(cuda):

@@ -69,6 +69,31 @@ def test_photometric_and_depth_losses_match_jax(images):
     np.testing.assert_allclose(tg, jg, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("name", ["l1_loss", "photometric_loss", "depth_l1_loss"])
+def test_l1_ties_take_jax_gradient(images, name):
+    """Where a value equals its target (a third of the pixels here, some as
+    -0.0 against +0.0), ``jnp.abs``'s gradient is +1 and ``torch.abs``'s 0;
+    the port's L1 terms take JAX's."""
+    img, gt = images
+    gt = gt.copy()
+    gt[:, ::3] = img[:, ::3]
+    img = img.copy()
+    img[0, 0, :] = -0.0
+    gt[0, 0, :] = 0.0
+    mask = np.ones((H, W), np.float32)
+    fns = {"l1_loss": (tl.l1_loss, jl.l1_loss),
+           "photometric_loss": (lambda a, b: tl.photometric_loss(a, b, 0.2),
+                                lambda a, b: jl.photometric_loss(a, b, 0.2)),
+           "depth_l1_loss": (lambda a, b: tl.depth_l1_loss(a[0], b[0], torch.from_numpy(mask)),
+                             lambda a, b: jl.depth_l1_loss(a[0], b[0], jnp.asarray(mask)))}
+    t_fn, j_fn = fns[name]
+    tv, tg = _grad_t(t_fn, img, gt)
+    jv, jg = _grad_j(j_fn, img, gt)
+    assert abs(tv - jv) <= 1e-6
+    np.testing.assert_allclose(tg, jg, atol=1e-5, rtol=0)
+    assert (tg[:, ::3] != 0).all() if name != "depth_l1_loss" else (tg[0, :, ::3] != 0).all()
+
+
 def _weighted_inputs(h=24, w=20):
     rng = np.random.default_rng(2)
     img1 = rng.random((3, h, w)).astype(np.float32)

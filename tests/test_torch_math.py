@@ -1,9 +1,11 @@
-"""Port parity: transforms, SH (degrees 0-3) and camera math against the JAX
+"""Port parity: transforms, SH (degrees 0-4) and camera math against the JAX
 package, on the same numpy inputs.  Tolerance 1e-6 (float32 rounding of
-the same expressions); camera matrices, built in numpy by both, are equal."""
+the same expressions); SH gradients within 3e-4 of ``jax.grad``'s, scaled;
+camera matrices, built in numpy by both, are equal."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,7 +64,7 @@ def test_affine_matches_jax():
            jtf.apply_affine(jnp.asarray(M), jnp.asarray(p)))
 
 
-@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
 def test_sh_matches_jax(deg):
     rng = np.random.default_rng(10 + deg)
     K = (deg + 1) ** 2
@@ -80,6 +82,22 @@ def test_sh_matches_jax(deg):
     assert float(col_t.min()) >= 0.0  # the +0.5 shift then clamp at 0
     rgb = rng.uniform(0, 1, (5, 3)).astype(np.float32)
     _close(tsh.rgb_to_sh(torch.from_numpy(rgb)), jsh.rgb_to_sh(jnp.asarray(rgb)))
+    _close(tsh.sh_to_rgb(torch.from_numpy(sh[:, 0])), jsh.sh_to_rgb(jnp.asarray(sh[:, 0])))
+
+    # gradients of a weighted sum with respect to the coefficients and the
+    # directions, against jax.grad
+    w = rng.normal(size=(80, 3)).astype(np.float32)
+    sh_t = torch.from_numpy(sh).requires_grad_(True)
+    dirs_t = torch.from_numpy(dirs).requires_grad_(True)
+    got = torch.autograd.grad((tsh.eval_sh(deg, sh_t, dirs_t) * torch.from_numpy(w)).sum(),
+                              (sh_t, dirs_t), allow_unused=True)  # degree 0: no dirs
+    want = jax.grad(lambda a, d: (jsh.eval_sh(deg, a, d) * w).sum(), argnums=(0, 1))(
+        jnp.asarray(sh), jnp.asarray(dirs))
+    for g_t, g_j, x in zip(got, want, (sh_t, dirs_t)):
+        g_t = torch.zeros_like(x) if g_t is None else g_t
+        g_j = np.asarray(g_j)
+        scale = np.abs(g_j).max() + 1e-12
+        assert np.abs(g_t.numpy() - g_j).max() <= 3e-4 * scale
 
 
 @pytest.mark.parametrize("translate,scale", [(None, 1.0), ((0.5, -0.2, 1.0), 1.5)])

@@ -54,7 +54,7 @@ def check_projection(tp: ProjectedGaussians, jp):
 @pytest.mark.parametrize(
     "sh_degree,antialiasing,size,tile",
     [(0, False, (64, 48), 16), (1, True, (50, 35), 16), (2, False, (128, 96), 4),
-     (3, True, (128, 96), 16)],
+     (3, True, (128, 96), 16), (4, True, (128, 96), 16)],
 )
 def test_preprocess_matches_jax(sh_degree, antialiasing, size, tile):
     arrs = _inputs(600, sh_degree, seed=sh_degree, big=12)

@@ -12,7 +12,10 @@ training CLI (``train/cli.py``).
   against JAX's ``train()`` through its dense oracle: losses within 1e-5,
   Adam moments and (99% of the solid) parameters at
   ``tests/test_torch_train_step.py``'s one-step tolerances times the 3
-  steps they accumulate over.
+  steps they accumulate over; the same with ``random_background`` (numpy's
+  seeded draws stay aligned between the loops), and with antialiasing,
+  sparse Adam and the exposure affine together (exposures and their moments
+  too).
 
 The CLI's own test is ``tests/test_torch_train_cli.py``.
 """
@@ -174,8 +177,30 @@ def test_camera_order_matches_jax(dataset, tmp_path, monkeypatch):
 
 
 def test_three_real_iterations_match_jax(dataset, tmp_path):
-    port_cfg, jax_cfg = _cfgs(dataset, str(tmp_path / "m"), 3)
+    _three_real_iterations(dataset, tmp_path)
+
+
+@pytest.mark.parametrize("switches", ["random_background", "antialiasing+sparse_adam+exposure"])
+def test_three_real_iterations_match_jax_with_switches(dataset, tmp_path, switches):
+    """The same under the training switches that change the step: an
+    uncached batch with a background drawn from numpy's seeded generator
+    each iteration; and the antialiasing filter, sparse Adam and the
+    exposure affine (``--train_test_exp``) together."""
+    _three_real_iterations(dataset, tmp_path, switches=switches)
+
+
+def _three_real_iterations(dataset, tmp_path, switches=""):
+    opt_kw = {}
+    if switches == "random_background":
+        opt_kw["random_background"] = True
+    elif switches:
+        opt_kw["optimizer_type"] = "sparse_adam"
+    port_cfg, jax_cfg = _cfgs(dataset, str(tmp_path / "m"), 3, **opt_kw)
     jax_cfg[2].rasterizer_impl = "dense"
+    if switches.startswith("antialiasing"):
+        for mcfg, _, pipe in (port_cfg, jax_cfg):
+            mcfg.train_test_exp = True
+            pipe.antialiasing = True
     losses = {"port": [], "jax": []}
     kw = dict(test_iterations=(), save_iterations=(), quiet=True, capacity=512, seed=1)
     state = loop.train(*port_cfg, device="cpu", **kw,
@@ -200,3 +225,12 @@ def test_three_real_iterations_match_jax(dataset, tmp_path):
         # 2 lr; every other solid entry stays within the one-step tolerance
         assert not solid.any() or (diff[solid] <= 3 * 3e-4 * lrs[name]).mean() >= 0.99, name
         assert diff.max() <= 3 * 2 * lrs[name], name
+    if switches.startswith("antialiasing"):
+        # the exposures moved, as JAX's did (test_torch_train_step.py's
+        # one-step tolerance on them, times 3 steps)
+        j_exp = np.asarray(jstate.exposures)
+        assert np.abs(j_exp - np.eye(3, 4, dtype=np.float32)).max() > 0
+        np.testing.assert_allclose(state.exposures.numpy(), j_exp, atol=3 * 3e-4 * 0.01, rtol=0)
+        j_mu = np.asarray(jstate.exp_adam.mu)
+        np.testing.assert_allclose(state.exp_adam.mu["exposures"].numpy() / np.abs(j_mu).max(),
+                                   j_mu / np.abs(j_mu).max(), atol=3 * 3e-4)
