@@ -95,7 +95,22 @@ Phases (any failure raises, and the script exits non-zero):
               iterations 1 and 500; ``metrics`` with LPIPS weights drawn from
               --seed (finite scores, a 1 dB PSNR gain); LPIPS on the card
               against the CPU.  Prints each step's wall time
- 19. multi-GPU      gshard at n = 4 ranks emulated in one process on the bench
+ 19. corpus         the three analytic scenes of the quality corpus at full
+              width (800x600, 100 train and 12 test views, 100k random
+              points, --capacity 262144, each scene's switches) through
+              ``gaussian_splatting_torch.corpus.run_scene``: generated on the
+              card ("spheres" reuses phase 18's views), trained on the
+              reference's 30,000-iteration schedule and ended after
+              iteration 1000 (densify from 600, the first SH step), the
+              render and metrics CLIs on the snapshot there; K1-K6 launch in
+              each scene and equal their twins bitwise on iteration 1000's
+              arguments, the test PSNR at 1000 at least JAX's (its
+              results/<scene>_train.log) less 1 dB; the three scenes at
+              once, each in a child process (``--corpus-child``); the
+              Gaussian count,
+              overflow no-ops and steady iteration time beside JAX's; K4 and
+              K6 timed on thicket's inputs at iteration 1000; a 360 s watchdog
+ 20. multi-GPU      gshard at n = 4 ranks emulated in one process on the bench
               scene: each stripe through K1-K6 bitwise against the twins
               (forward, and the backward of sum(colour) + sum(inverse depth))
               and the stitched image within 3e-5 of the single render, with
@@ -1586,32 +1601,33 @@ def make_cli_scene(root, model_dir, device="cuda"):
 class LoopProbe:
     """Instruments ``train.loop`` for one CLI run, restoring it on exit:
     the host time at which each ``train_step`` is queued and the active SH
-    degree it runs at, one profiled
-    steady step, and the synchronised wall time of each boundary operation
-    (densify, opacity reset, eval, snapshot, checkpoint, slack probe,
-    capacity growth)."""
+    degree it runs at, one profiled steady step with the arguments of its
+    first call of each kernel wrapper (K1-K6), and the synchronised wall
+    time of each boundary operation (densify, opacity reset, eval, snapshot,
+    checkpoint, slack probe, capacity growth).  With ``end_after``, the run
+    ends (``corpus.EndRun``) when the loop queues the step after that
+    many."""
 
     BOUNDARIES = ("densify_step", "opacity_reset_step", "report_psnr", "save_checkpoint",
                   "estimate_instance_slack", "grow_train_state", "gather_state", "shard_state")
 
-    def __init__(self, profile_iteration=None, step_name="train_step"):
+    def __init__(self, profile_iteration=None, step_name="train_step", end_after=None):
         self.profile_iteration = profile_iteration
         self.step_name = step_name
+        self.end_after = end_after
         self.packed = []  # each step's packed metrics (read after the run)
         self.starts = []
         self.first_step = None
         self.boundaries = []  # (iteration, name, ms)
         self.profiled = None
         self.profile_ms = {}  # each kernel's device ms per launch in the profiled step
-        self.inputs = {}  # K4's and K6's arguments in the profiled step
+        self.inputs = {}  # K1-K6 wrappers' arguments in the profiled step, by wrapper name
         self.sh_degrees = []  # each step's active SH degree
 
     def __enter__(self):
         import torch
 
-        from gaussian_splatting_torch import _kernels
-        from gaussian_splatting_torch.ops import segreduce as sr
-        from gaussian_splatting_torch.ops import untile as ut
+        from gaussian_splatting_torch import _kernels, corpus
         from gaussian_splatting_torch.scene import Scene
         from gaussian_splatting_torch.train import loop
 
@@ -1619,7 +1635,7 @@ class LoopProbe:
                        for n in (self.step_name,) + self.BOUNDARIES]
         self._saved.append((Scene, "save", Scene.save))
         real_step = getattr(loop, self.step_name)
-        wrapped = ((ut, "retile"), (sr, "segment_reduce_rows"))
+        wrapped = [(module, name) for module, name, _ in kernel_wrappers()]
         real = {name: getattr(module, name) for module, name in wrapped}
 
         def keep_inputs(name):
@@ -1631,6 +1647,8 @@ class LoopProbe:
         def train_step(state, *args, **kw):
             if self.first_step is None:
                 self.first_step = int(state.step)
+            if len(self.starts) == self.end_after:
+                raise corpus.EndRun(self.first_step + self.end_after)
             self.starts.append(time.perf_counter())
             self.sh_degrees.append(state.model.sh_degree)
             if len(self.starts) == self.profile_iteration:
@@ -1686,23 +1704,6 @@ class LoopProbe:
                 if k % 100 not in (0, 1) and abs(k - p) > 1]
 
 
-class Tee:
-    """A stdout that also keeps every line written."""
-
-    def __init__(self, stream):
-        self.stream, self.lines, self._buf = stream, [], ""
-
-    def write(self, text):
-        self.stream.write(text)
-        self._buf += text
-        *done, self._buf = self._buf.split("\n")
-        self.lines += done
-        return len(text)
-
-    def flush(self):
-        self.stream.flush()
-
-
 def train_cli_phase(root, scene_dir, seed, device="cuda"):
     """``python -m gaussian_splatting_torch.train`` in-process at full width:
     300 iterations from create_from_pcd on 500k points at 1080p (densify at
@@ -1711,11 +1712,12 @@ def train_cli_phase(root, scene_dir, seed, device="cuda"):
     render CLI on the result.  Checks the files, the launches, the resume
     point and the test-view PSNR gain over the initial model."""
     import contextlib
+    import io
     import statistics
 
     import torch
 
-    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch import _kernels, corpus
     from gaussian_splatting_torch import render as render_cli
     from gaussian_splatting_torch.train import cli
 
@@ -1727,7 +1729,8 @@ def train_cli_phase(root, scene_dir, seed, device="cuda"):
             "--test_iterations", "300", "--save_iterations", "100", "300",
             "--checkpoint_iterations", "300", "--disable_viewer", "--seed", str(seed),
             "--device", device]
-    tee = Tee(sys.stdout)
+    kept = io.StringIO()
+    tee = corpus.Tee(sys.stdout, kept)
     _kernels.reset_launches()
     with LoopProbe(CLI_PROFILED_ITERATION) as probe, contextlib.redirect_stdout(tee):
         t0 = time.perf_counter()
@@ -1749,7 +1752,7 @@ def train_cli_phase(root, scene_dir, seed, device="cuda"):
           f"min {min(steady):.3f}, max {max(steady):.3f} ms")
     for it, name, ms in probe.boundaries:
         print(f"  boundary at iteration {it}: {name} {ms:.3f} ms wall (synchronised)")
-    reports = [ln for ln in tee.lines
+    reports = [ln for ln in kept.getvalue().splitlines()
                if "instance_slack" in ln or "capacity" in ln or "overflow" in ln]
     print("slack and capacity changes the loop reported:")
     for ln in reports:
@@ -1786,6 +1789,44 @@ def train_cli_phase(root, scene_dir, seed, device="cuda"):
     first = probe.steady_ms(below=100)
     print(f"steady iterations 10-99: mean {statistics.mean(first):.3f} ms over {len(first)}")
     return launches, {"all": statistics.mean(steady), "10-99": statistics.mean(first)}
+
+
+def kernel_wrappers():
+    """(module, wrapper name, launch counter name) of K1-K6; each wrapper's
+    plain twin is ``<wrapper name>_plain`` in the same module."""
+    from gaussian_splatting_torch.ops import blend as bl
+    from gaussian_splatting_torch.ops import expand as ex
+    from gaussian_splatting_torch.ops import segreduce as sr
+    from gaussian_splatting_torch.ops import untile as ut
+
+    return ((ex, "expand_instances", "expand"), (bl, "blend_forward", "blend_forward"),
+            (ut, "untile", "untile"), (ut, "retile", "retile"),
+            (bl, "blend_backward", "blend_backward"),
+            (sr, "segment_reduce_rows", "segment_reduce"))
+
+
+def kept_kernels_bitwise(probe):
+    """K1-K6 against their twins, bitwise, on the arguments the profiled
+    step of ``probe`` gave them.  K5 writes only the sorted slots that lie
+    in a tile's range (below the largest tile end); the rest are compared
+    nowhere.  Returns the values compared, by launch counter name."""
+    import torch
+
+    sizes = {}
+    with torch.no_grad():
+        for module, name, counter in kernel_wrappers():
+            args, kw = probe.inputs[name]
+            got, want = (getattr(module, fn)(*args, **kw) for fn in (name, name + "_plain"))
+            if name == "blend_backward":
+                n = int(args[2].max())  # tile_ends
+                got, want = got[:n], want[:n]
+            torch.cuda.synchronize()
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise RuntimeError(f"{counter} disagrees with its plain version on the inputs "
+                                   f"of iteration {probe.profile_iteration}")
+            sizes[counter] = sum(a.numel() for a, _ in pairs)
+    return sizes
 
 
 def cli_kernel_times(probe):
@@ -2081,6 +2122,7 @@ def config_cli_run(root, scene_dir, seed, run, cli_steady, counted, device="cuda
         counted(lambda: cli.main(argv))
         wall = time.perf_counter() - t0
     launches = dict(_kernels.launches)  # this run's, as ``counted`` left them
+    cli_kernel_times(probe)  # not counted: ``counted`` resets before its next call
     losses = [float(p[0]) for p in probe.packed]
     steady, first = probe.steady_ms(), probe.steady_ms(below=100)
     print(f"run {run} ({what}): {len(probe.starts)} iterations from {probe.first_step} in "
@@ -2671,6 +2713,155 @@ def evaluation_phase(root, seed, device="cuda"):
     return launches
 
 
+CORPUS_ITERATIONS = 1000  # the reference schedule's first evaluation
+CORPUS_TIMED = "thicket"  # K4 and K6 timed on its inputs at iteration 1000
+CORPUS_DEADLINE_S = 360.0  # the whole phase; past it the script exits non-zero
+
+
+def corpus_phase(root, seed):
+    """The quality corpus (``gaussian_splatting_torch.corpus``) at full width:
+    each analytic scene (800x600, 100 train and 12 test views, 100k random
+    points, ``--capacity 262144`` and its own switches) generated on the
+    card and trained through ``run_scene`` on the reference's
+    30,000-iteration schedule, ended after CORPUS_ITERATIONS (the
+    white-background opacity reset at 500, densify at 600-1000, the first SH
+    step), so that what decays over the run's length (thicket's depth-loss
+    weight, glossy's exposure LR) decays as in the run JAX's numbers come
+    from; the render and metrics CLIs then score the snapshot there.  The
+    three scenes run at once, each in a child process (``corpus_child``):
+    the loop's pace is the host's, and the card has room for all three.
+    K1-K6 must launch in each scene and equal their twins bitwise on the
+    arguments of iteration CORPUS_ITERATIONS, and the test PSNR there must
+    reach JAX's (``results/<scene>_train.log``) less ``corpus.BOUNDS_DB``."""
+    import threading
+
+    from gaussian_splatting_torch import _kernels, corpus
+
+    phase("corpus")
+    t_phase = time.perf_counter()
+    children = []
+
+    def stop_children():
+        for proc, _ in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def past_deadline():
+        stop_children()
+        _past_deadline("corpus", CORPUS_DEADLINE_S)
+
+    watchdog = threading.Timer(CORPUS_DEADLINE_S, past_deadline)
+    watchdog.daemon = True
+    watchdog.start()
+    reports, failed = {}, []
+    try:
+        for name in corpus.SCENES:
+            out = open(os.path.join(root, f"corpus_{name}.out"), "w")
+            children.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                 "--corpus-child", name, root], stdout=out, stderr=subprocess.STDOUT), out))
+        for name, (proc, out) in zip(corpus.SCENES, children):
+            code = proc.wait()
+            out.close()
+            with open(out.name) as f:
+                lines = f.read().splitlines()
+            print(f"scene {name}: child exit code {code}")
+            for ln in lines:
+                print(f"  {name} | {ln}")
+            found = [ln for ln in lines if ln.startswith("CORPUS_CHILD ")]
+            if code or not found:
+                failed.append(name)
+            else:
+                reports[name] = json.loads(found[-1][len("CORPUS_CHILD "):])
+    finally:
+        stop_children()
+        for _, out in children:
+            out.close()
+    watchdog.cancel()
+    if failed:
+        raise RuntimeError(f"the corpus scenes {failed} failed")
+    total = {name: 0 for name in _kernels.KERNELS}
+    bound = corpus.BOUNDS_DB[CORPUS_ITERATIONS]
+    short = []
+    for name, r in reports.items():
+        for k, n in r["launches"].items():
+            total[k] += n
+        _check_launches(r["launches"], _kernels.TRAIN_KERNELS, f"the corpus scene {name}")
+        print(f"{name}: test PSNR at {CORPUS_ITERATIONS} {r['psnr']} (JAX {r['ref_psnr']}, "
+              f"required >= {r['ref_psnr'] - bound:.2f}); child {r['wall_s']:.3f} s wall")
+        if r["psnr"] is None or not r["psnr"] >= r["ref_psnr"] - bound:
+            short.append(name)
+    print(f"launches during the corpus phase: {total}; phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    if short:
+        raise RuntimeError(f"test PSNR at {CORPUS_ITERATIONS} more than {bound} dB below "
+                           f"JAX's on {short}")
+    return total
+
+
+def corpus_child(root, name, seed, device="cuda"):
+    """The child of ``corpus_phase`` for scene ``name``: the scene generated
+    on the card ("spheres" reuses the evaluation phase's views when ``seed``
+    is the corpus's 0: the same images, its depth maps unused), trained
+    under ``LoopProbe`` and scored; K1-K6 bitwise against their twins on the
+    arguments of iteration CORPUS_ITERATIONS, and K4 and K6 timed on them in
+    CORPUS_TIMED; then one line ``CORPUS_CHILD {json}`` with the launches of
+    the run and its test PSNR beside JAX's."""
+    import statistics
+
+    import torch
+
+    from gaussian_splatting_torch import _kernels, corpus
+
+    t_child = time.perf_counter()
+    data = os.path.join(root, f"corpus_{name}")
+    reuse = os.path.join(root, "analytic_scene")
+    if name == "spheres" and seed == 0 and os.path.isdir(reuse):
+        data = reuse
+        print(f"{name}: the evaluation phase's views (seed 0, the same generation)")
+    else:
+        t0 = time.perf_counter()
+        corpus.generate(name, data, device=device)
+        print(f"{name}: generated on {device} in {time.perf_counter() - t0:.3f} s wall")
+    _kernels.reset_launches()
+    with LoopProbe(CORPUS_ITERATIONS, end_after=CORPUS_ITERATIONS) as probe:
+        run = corpus.run_scene(name, data, os.path.join(root, f"corpus_model_{name}"),
+                               save_iterations=(CORPUS_ITERATIONS,), device=device,
+                               results_dir=os.path.join(root, f"corpus_results_{name}"),
+                               extra_args=("--seed", str(seed)))
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    if len(probe.starts) != CORPUS_ITERATIONS or probe.first_step != 0:
+        raise RuntimeError(f"{name}: expected {CORPUS_ITERATIONS} steps from 0, got "
+                           f"{len(probe.starts)} from {probe.first_step}")
+    with open(os.path.join(REPO, "results", f"{name}_train.log")) as f:
+        ref = corpus.trajectory(f.read())
+    got = run["trajectory"]
+    steady = probe.steady_ms()
+    psnr, ref_psnr = got.test_psnr.get(CORPUS_ITERATIONS), ref.test_psnr[CORPUS_ITERATIONS]
+    print(f"{name} at iteration {CORPUS_ITERATIONS}: test PSNR {psnr} (JAX {ref_psnr}), "
+          f"Gaussians {got.gaussians(CORPUS_ITERATIONS)} (JAX "
+          f"{ref.gaussians(CORPUS_ITERATIONS)}), overflow no-ops {len(got.overflows)} (JAX "
+          f"{len(ref.overflows)}); training {run['train_s']:.3f} s wall, render and metrics "
+          f"{run['score_s']:.3f} s; {len(steady)} steady iterations: mean "
+          f"{statistics.mean(steady):.3f} ms, median {statistics.median(steady):.3f} ms (three "
+          f"scenes at once); scores {json.dumps(run['results'])}; launches {launches}")
+    for it, text in got.events:
+        print(f"  [it {it}] {text}")
+    for it, b_name, ms in probe.boundaries:
+        print(f"  boundary at iteration {it}: {b_name} {ms:.3f} ms wall (synchronised)")
+    sizes = kept_kernels_bitwise(probe)  # after ``launches`` was read: not counted
+    print(f"  K1-K6 bitwise equal to their twins on iteration {CORPUS_ITERATIONS}'s "
+          f"inputs: " + ", ".join(f"{k} {v} values" for k, v in sizes.items()))
+    if name == CORPUS_TIMED:
+        cli_kernel_times(probe)
+    probe.inputs.clear()
+    print("CORPUS_CHILD " + json.dumps({"scene": name, "launches": launches, "psnr": psnr,
+                                        "ref_psnr": ref_psnr,
+                                        "wall_s": time.perf_counter() - t_child}))
+
+
 MGPU_RANKS = 4  # gshard's n, emulated in one process at full width
 MGPU_STEPS = 3  # of each step function at a world of one
 MGPU_CLI_ITERATIONS = {"gshard": 110, "dp": 30}  # gshard through its densify at 100
@@ -3138,10 +3329,14 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--cli-child", choices=["dp", "gshard"], help=argparse.SUPPRESS)
+    parser.add_argument("--corpus-child", nargs=2, metavar=("SCENE", "ROOT"),
+                        help=argparse.SUPPRESS)
     parser.add_argument("cli_argv", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.cli_child:
         return cli_child(args.cli_child, [a for a in args.cli_argv if a != "--"])
+    if args.corpus_child:
+        return corpus_child(args.corpus_child[1], args.corpus_child[0], args.seed)
 
     kind, count = device_phase()
     segscan_first_lib = build_phase()
@@ -3168,6 +3363,7 @@ def main():
     rows.append(row)
     del tctx
     launches["evaluation"] = evaluation_phase(root, args.seed)
+    launches["corpus"] = corpus_phase(root, args.seed)
     launches["multi-GPU"] = multi_gpu_phase(root, model_dir, scene_dir, args.seed,
                                             cli_steady["all"])
     shutil.rmtree(root, ignore_errors=True)
