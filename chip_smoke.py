@@ -122,6 +122,12 @@ Phases (any failure raises, and the script exits non-zero):
               densify at 100) and --parallel dp (30) in subprocesses on the
               CLI scene: K1-K6 launch, rank 0's files,
               finite losses, the steady iteration time beside phase 13's
+ 21. late state     the committed fixture LATE_STATE (the port's "spheres"
+              corpus run at iteration 15000, the central window of a test
+              view; ``tools/torch_c4_probe.py --cut``) through one training
+              step on the card: K1-K6 launch, each bitwise equal to its twin
+              on the step's own arguments, and the render within 2e-4 of the
+              all-plain path with equal radii
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a card: without one it exits non-zero
 before printing any result.
@@ -1103,11 +1109,10 @@ def _field_grads(setup, view, kernels, state=None, raster=None, exposure=None):
     return d_fields, proj, fields.detach(), capacity, bool(overflow)
 
 
-def backward_inputs(setup, proj, fields, capacity, view=0, exposure=None):
-    """The blend backward's inputs on a training step of ``view``: the
+def backward_inputs(setup, proj, fields, capacity):
+    """The blend backward's inputs on the first training step (view 0): the
     layout, K2's packed output, and the loss's gradient with respect to the
-    untiled image (K4 retiles it into K5's cotangent); ``exposure`` as in
-    ``_field_grads``."""
+    untiled image (K4 retiles it into K5's cotangent)."""
     import torch
 
     from gaussian_splatting_torch.ops import blend as bl
@@ -1115,10 +1120,9 @@ def backward_inputs(setup, proj, fields, capacity, view=0, exposure=None):
     from gaussian_splatting_torch.ops import untile as ut
     from gaussian_splatting_torch.ops.losses import photometric_loss
     from gaussian_splatting_torch.ops.preprocess import clip
-    from gaussian_splatting_torch.train.step import apply_exposure
 
     gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
-    batch = setup["batches"][view]
+    batch = setup["batches"][0]
     with torch.no_grad():
         layout = inst.build_instances(proj, grid_x=gx, grid_y=gy, capacity=capacity,
                                       grad_layout=True)
@@ -1128,8 +1132,6 @@ def backward_inputs(setup, proj, fields, capacity, view=0, exposure=None):
         img = ut.untile(packed, **ukw, width=WIDTH, height=HEIGHT, cols=bl.CT_COLS)
     img.requires_grad_(True)
     image = clip(img[:3] + img[3][None] * batch.bg_color[:, None, None], 0.0, 1.0)
-    if exposure is not None:
-        image = apply_exposure(image, exposure)
     (d_img,) = torch.autograd.grad(photometric_loss(image, batch.gt_image, 0.2), img)
     return layout, args, packed, d_img, ukw
 
@@ -1606,15 +1608,20 @@ class LoopProbe:
     time of each boundary operation (densify, opacity reset, eval, snapshot,
     checkpoint, slack probe, capacity growth).  With ``end_after``, the run
     ends (``corpus.EndRun``) when the loop queues the step after that
-    many."""
+    many.  At each step count in ``keep_at`` the step runs unprofiled with
+    the arguments of its first call of each kernel wrapper kept in
+    ``inputs``, and ``on_kept(probe, iteration)`` is called after it."""
 
     BOUNDARIES = ("densify_step", "opacity_reset_step", "report_psnr", "save_checkpoint",
                   "estimate_instance_slack", "grow_train_state", "gather_state", "shard_state")
 
-    def __init__(self, profile_iteration=None, step_name="train_step", end_after=None):
+    def __init__(self, profile_iteration=None, step_name="train_step", end_after=None,
+                 keep_at=(), on_kept=None):
         self.profile_iteration = profile_iteration
         self.step_name = step_name
         self.end_after = end_after
+        self.keep_at = set(keep_at)
+        self.on_kept = on_kept
         self.packed = []  # each step's packed metrics (read after the run)
         self.starts = []
         self.first_step = None
@@ -1635,14 +1642,6 @@ class LoopProbe:
                        for n in (self.step_name,) + self.BOUNDARIES]
         self._saved.append((Scene, "save", Scene.save))
         real_step = getattr(loop, self.step_name)
-        wrapped = [(module, name) for module, name, _ in kernel_wrappers()]
-        real = {name: getattr(module, name) for module, name in wrapped}
-
-        def keep_inputs(name):
-            def fn(*args, **kw):
-                self.inputs.setdefault(name, (args, kw))
-                return real[name](*args, **kw)
-            return fn
 
         def train_step(state, *args, **kw):
             if self.first_step is None:
@@ -1655,18 +1654,19 @@ class LoopProbe:
                 torch.cuda.synchronize()
                 held = []
                 print(f"profiled steady iteration {self.profile_iteration}:", end=" ")
-                for module, name in wrapped:
-                    setattr(module, name, keep_inputs(name))
-                try:
+                with KeptInputs(self.inputs):
                     self.profile_ms = profile_call(
                         lambda: held.append(real_step(state, *args, **kw)),
                         _kernels.TRAIN_KERNELS)
-                finally:
-                    for module, name in wrapped:
-                        setattr(module, name, real[name])
                 self.profiled = held[0]
                 self.packed.append(held[0][1]["packed"])
                 return held[0]
+            if len(self.starts) in self.keep_at:
+                with KeptInputs(self.inputs):
+                    result = real_step(state, *args, **kw)
+                self.packed.append(result[1]["packed"])
+                self.on_kept(self, self.first_step + len(self.starts))
+                return result
             result = real_step(state, *args, **kw)
             self.packed.append(result[1]["packed"])
             return result
@@ -1805,17 +1805,44 @@ def kernel_wrappers():
             (sr, "segment_reduce_rows", "segment_reduce"))
 
 
-def kept_kernels_bitwise(probe):
-    """K1-K6 against their twins, bitwise, on the arguments the profiled
-    step of ``probe`` gave them.  K5 writes only the sorted slots that lie
-    in a tile's range (below the largest tile end); the rest are compared
-    nowhere.  Returns the values compared, by launch counter name."""
+class KeptInputs:
+    """Within the block, each K1-K6 wrapper keeps the arguments of its first
+    call in ``inputs`` (by wrapper name) and then runs as before."""
+
+    def __init__(self, inputs=None):
+        self.inputs = {} if inputs is None else inputs
+
+    def __enter__(self):
+        self._real = [(module, name, getattr(module, name))
+                      for module, name, _ in kernel_wrappers()]
+        for module, name, fn in self._real:
+            setattr(module, name, self._keep(name, fn))
+        return self
+
+    def _keep(self, name, fn):
+        def wrapper(*args, **kw):
+            self.inputs.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return wrapper
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._real:
+            setattr(module, name, fn)
+        return False
+
+
+def kept_kernels_bitwise(inputs, what):
+    """K1-K6 against their twins, bitwise, on the arguments ``inputs`` holds
+    by wrapper name (``LoopProbe.inputs``, ``KeptInputs.inputs``) from
+    ``what``.  K5 writes only the sorted slots that lie in a tile's range
+    (below the largest tile end); the rest are compared nowhere.  Returns
+    the values compared, by launch counter name."""
     import torch
 
     sizes = {}
     with torch.no_grad():
         for module, name, counter in kernel_wrappers():
-            args, kw = probe.inputs[name]
+            args, kw = inputs[name]
             got, want = (getattr(module, fn)(*args, **kw) for fn in (name, name + "_plain"))
             if name == "blend_backward":
                 n = int(args[2].max())  # tile_ends
@@ -1824,7 +1851,7 @@ def kept_kernels_bitwise(probe):
             pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
             if not all(torch.equal(a, b) for a, b in pairs):
                 raise RuntimeError(f"{counter} disagrees with its plain version on the inputs "
-                                   f"of iteration {probe.profile_iteration}")
+                                   f"of {what}")
             sizes[counter] = sum(a.numel() for a, _ in pairs)
     return sizes
 
@@ -1868,9 +1895,9 @@ CONFIG_DEADLINE_S = 420.0  # the whole phase; past it the script exits non-zero
 def configurations_phase(root, model_dir, scene_dir, seed, cli_steady, device="cuda"):
     """The training switches that change what K1-K6 receive, at full width.
     (a) On the fixture's training start, one step under each of
-    ``CONFIG_STEPS`` alone: K1-K6 bitwise against their twins on the step's
-    own inputs, the field gradients within TOL_GRAD of the all-twin path,
-    then the step itself.  (b) The training CLI on the CLI scene twice,
+    ``CONFIG_STEPS`` alone: the field gradients within TOL_GRAD of the
+    all-twin path, then the step itself, and K1-K6 bitwise against their
+    twins on the arguments the step gave them.  (b) The training CLI on the CLI scene twice,
     each with the render CLI after it: ``--sh_degree 4`` from a degree-4
     checkpoint (every step at active degree 4; a 72-column snapshot), and
     ``--antialiasing --optimizer_type sparse_adam --train_test_exp
@@ -1944,9 +1971,10 @@ def widen_to_degree_4(model, seed):
 
 def configured_step(setup, name, seed, counted):
     """One full-width training step of view 0 under configuration ``name``
-    from the setup's start: K1-K6 bitwise against their twins on the step's
-    inputs and the field gradients against the all-twin path, then the step
-    (counted), and the configuration's own checks."""
+    from the setup's start: the field gradients against the all-twin path,
+    then the step (counted), K1-K6 bitwise against their twins on the
+    arguments the step gave them (``KeptInputs``), and the configuration's
+    own checks."""
     import dataclasses
 
     import torch
@@ -1998,19 +2026,21 @@ def configured_step(setup, name, seed, counted):
           f"(tolerance {TOL_GRAD})")
     if not err <= TOL_GRAD:
         raise RuntimeError(f"{name}: kernel gradients disagree with the all-twin path")
-    sizes = step_kernels_bitwise(setup, view, proj, fields, capacity, exposure)
-    print(f"  K1-K6 bitwise equal to their twins on the step's inputs: "
-          + ", ".join(f"{k} {v} values" for k, v in sizes.items()))
-
     before = {k: v.clone() for k, v in state.tensors().items()}
     t1 = time.perf_counter()
-    _, m = counted(lambda: train_step(state, cam, batch, opt=opt, raster=raster,
-                                      use_exposure=use_exposure))
+    with KeptInputs() as kept:
+        _, m = counted(lambda: train_step(state, cam, batch, opt=opt, raster=raster,
+                                          use_exposure=use_exposure))
     vals = m["packed"].tolist()
-    print(f"  step: {(time.perf_counter() - t1) * 1e3:.2f} ms wall (synchronised), loss "
-          f"{vals[0]:.6f}, slot demand {int(vals[4])}, overflow {bool(vals[3])}")
+    print(f"  step: {(time.perf_counter() - t1) * 1e3:.2f} ms wall (synchronised, its "
+          f"arguments kept), loss {vals[0]:.6f}, slot demand {int(vals[4])}, overflow "
+          f"{bool(vals[3])}")
     if vals[3] or not math.isfinite(vals[0]):
         raise RuntimeError(f"{name}: the step overflowed or its loss is not finite")
+    sizes = kept_kernels_bitwise(kept.inputs, f"the {name} step")  # after counted: not counted
+    del kept
+    print(f"  K1-K6 bitwise equal to their twins on the step's inputs: "
+          + ", ".join(f"{k} {v} values" for k, v in sizes.items()))
     after = state.tensors()
     if name == "sparse Adam":
         hidden = proj.radii == 0
@@ -2028,52 +2058,6 @@ def configured_step(setup, name, seed, counted):
         if not bool(torch.isfinite(g_exp).all()) or not float(g_exp.abs().max()) > 0:
             raise RuntimeError("the exposure gradient is not finite and nonzero")
     print(f"  configuration done in {time.perf_counter() - t0:.3f} s")
-
-
-def step_kernels_bitwise(setup, view, proj, fields, capacity, exposure=None):
-    """K1-K6 against their twins on one training step's inputs, bitwise: K1
-    on its expansion table, K2 on its layout, K3 on K2's output, K4 on the
-    loss's gradient with respect to the untiled planes, K5 on K4's output,
-    K6 on K5's rows in expansion order.  Returns the values compared."""
-    import torch
-
-    from gaussian_splatting_torch.ops import blend as bl
-    from gaussian_splatting_torch.ops import expand as ex
-    from gaussian_splatting_torch.ops import instances as inst
-    from gaussian_splatting_torch.ops import segreduce as sr
-    from gaussian_splatting_torch.ops import untile as ut
-    from gaussian_splatting_torch.ops.rasterize import expansion_order
-
-    layout, args, packed, d_img, ukw = backward_inputs(setup, proj, fields, capacity, view,
-                                                       exposure)
-    gx = ukw["grid_x"]
-    ikw = dict(ukw, width=WIDTH, height=HEIGHT, cols=bl.CT_COLS)
-    sizes = {}
-
-    def same(name, got, want):
-        torch.cuda.synchronize()
-        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-        if not all(torch.equal(a, b) for a, b in pairs):
-            raise RuntimeError(f"{name} kernel disagrees with its plain version")
-        sizes[name] = sum(a.numel() for a, _ in pairs)
-
-    with torch.no_grad():
-        table, _ = inst.build_table(proj)
-        ekw = dict(capacity=inst.internal_capacity(capacity), grid_x=gx,
-                   num_tiles=gx * ukw["grid_y"])
-        same("expand", ex.expand_instances(table, **ekw), ex.expand_instances_plain(table, **ekw))
-        same("blend_forward", packed, bl.blend_forward_plain(*args, grid_x=gx))
-        same("untile", ut.untile(packed, **ikw), ut.untile_plain(packed, **ikw))
-        ct = ut.retile(d_img, **ukw)
-        same("retile", ct, ut.retile_plain(d_img, **ukw))
-        n = int(layout.n_valid)
-        d_sorted = bl.blend_backward(*args, packed, ct, grid_x=gx)
-        same("blend_backward", d_sorted[:n],
-             bl.blend_backward_plain(*args, packed, ct, grid_x=gx)[:n])
-        d_exp = expansion_order(d_sorted, layout)
-        same("segment_reduce", sr.segment_reduce_rows(d_exp, layout.seg_offsets),
-             sr.segment_reduce_rows_plain(d_exp, layout.seg_offsets))
-    return sizes
 
 
 def config_cli_run(root, scene_dir, seed, run, cli_steady, counted, device="cuda"):
@@ -2851,7 +2835,8 @@ def corpus_child(root, name, seed, device="cuda"):
         print(f"  [it {it}] {text}")
     for it, b_name, ms in probe.boundaries:
         print(f"  boundary at iteration {it}: {b_name} {ms:.3f} ms wall (synchronised)")
-    sizes = kept_kernels_bitwise(probe)  # after ``launches`` was read: not counted
+    # after ``launches`` was read: not counted
+    sizes = kept_kernels_bitwise(probe.inputs, f"iteration {CORPUS_ITERATIONS}")
     print(f"  K1-K6 bitwise equal to their twins on iteration {CORPUS_ITERATIONS}'s "
           f"inputs: " + ", ".join(f"{k} {v} values" for k, v in sizes.items()))
     if name == CORPUS_TIMED:
@@ -2860,6 +2845,71 @@ def corpus_child(root, name, seed, device="cuda"):
     print("CORPUS_CHILD " + json.dumps({"scene": name, "launches": launches, "psnr": psnr,
                                         "ref_psnr": ref_psnr,
                                         "wall_s": time.perf_counter() - t_child}))
+
+
+LATE_STATE = os.path.join("tests", "data", "spheres_15000_crop.npz")
+LATE_STATE_CAPACITY = 4096  # slots: the fixture keeps at most 2000 Gaussians
+
+
+def late_state_phase(device="cuda"):
+    """The late-state fixture through one ``train_step`` on the card, at the
+    snapshot's SH degree and step count: K1-K6 must launch and equal their
+    twins bitwise on the step's arguments (``KeptInputs``); then the render
+    of the fixture against the all-plain path (``_render(kernels=False)``):
+    RGB, T and inverse depth within TOL_IMAGE, radii equal."""
+    import torch
+
+    from gaussian_splatting_torch import _kernels
+    from gaussian_splatting_torch.config import OptimizationConfig, RasterizeConfig
+    from gaussian_splatting_torch.ops.rasterize import _render, project
+    from gaussian_splatting_torch.train.step import StepBatch, init_train_state, train_step
+    from gaussian_splatting_torch.utils.testing import (read_state_crop, slot_capacity,
+                                                        state_crop_camera, state_crop_model)
+
+    phase("late state")
+    t0 = time.perf_counter()
+    crop = read_state_crop(os.path.join(REPO, LATE_STATE))
+    model = state_crop_model(crop, LATE_STATE_CAPACITY, device)
+    cam = state_crop_camera(crop, device)
+    degree = int(crop["sh_degree"])
+    with torch.no_grad():
+        demand = int(project(*model.activated_params(), cam, sh_degree=degree)
+                     .tiles_touched.sum())
+    slots = slot_capacity(demand)
+    state = init_train_state(model, 1)
+    state.step.fill_(int(crop["iteration"]))
+    h, w = crop["gt"].shape[1:]
+    bg = torch.ones(3, device=device)
+    batch = StepBatch(torch.from_numpy(crop["gt"]).to(device), torch.ones((1, h, w), device=device),
+                      torch.zeros((h, w), device=device), torch.zeros((h, w), device=device),
+                      torch.tensor(0, device=device), bg)
+    raster = RasterizeConfig(instance_slack=slots / LATE_STATE_CAPACITY)
+    _kernels.reset_launches()
+    with KeptInputs() as kept:
+        state, metrics = train_step(state, cam, batch, opt=OptimizationConfig(), raster=raster)
+        torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    print(f"fixture: {int(model.alive.sum())} Gaussians at iteration {int(crop['iteration'])}, "
+          f"a {w}x{h} window, {demand} slots; step loss {float(metrics['loss']):.6f}, "
+          f"overflow {bool(metrics['overflow'])}; launches {launches}")
+    _check_launches(launches, _kernels.TRAIN_KERNELS, "the late state's step")
+    if bool(metrics["overflow"]) or not math.isfinite(float(metrics["loss"])):
+        raise RuntimeError("the late state's step overflowed or gave a non-finite loss")
+    sizes = kept_kernels_bitwise(kept.inputs, "the late state's step")
+    print("K1-K6 bitwise equal to their twins on the late state's step: "
+          + ", ".join(f"{k} {v} values" for k, v in sizes.items()))
+    fresh = state_crop_model(crop, LATE_STATE_CAPACITY, device)
+    with torch.no_grad():
+        got, want = (_render(*fresh.activated_params(), cam, bg, sh_degree=degree,
+                             capacity=slots, kernels=k) for k in (True, False))
+    torch.cuda.synchronize()
+    errs = {name: float((getattr(got, name) - getattr(want, name)).abs().max())
+            for name in ("image", "final_T", "invdepth")}
+    print(f"render against the all-plain path: max |diff| {errs}, radii equal "
+          f"{bool(torch.equal(got.radii, want.radii))}; phase {time.perf_counter() - t0:.3f} s")
+    if max(errs.values()) > TOL_IMAGE or not torch.equal(got.radii, want.radii):
+        raise RuntimeError("the late state's render disagrees with the all-plain path")
+    return launches
 
 
 MGPU_RANKS = 4  # gshard's n, emulated in one process at full width
@@ -3366,6 +3416,7 @@ def main():
     launches["corpus"] = corpus_phase(root, args.seed)
     launches["multi-GPU"] = multi_gpu_phase(root, model_dir, scene_dir, args.seed,
                                             cli_steady["all"])
+    launches["late state"] = late_state_phase()
     shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"kernels": add_launches(rows, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -707,3 +707,53 @@ def emulated_exchange(means3d, scales, quats, opacities, sh, cam, *, n: int, sh_
     kw = dict(grid_x=grid_x, grid_y_local=grid_y_local, tile_w=tile_w, tile_h=tile_h,
               width=cam.width, capacity=capacity)
     return received, kw, routed, overflow
+
+
+def crop_fovs(width: int, height: int, fovx: float, fovy: float, w: int, h: int):
+    """The central ``w`` x ``h`` window of a ``width`` x ``height`` view, at
+    the view's own focal lengths: (fovx', fovy', x0, y0), with
+    fov' = 2 atan(w / (2 f)) and (x0, y0) the window's first pixel.  The
+    margins must be even, so that the window's pixel centres are the view's."""
+    if (width - w) % 2 or (height - h) % 2:
+        raise ValueError(f"a {w}x{h} window is not centred on {width}x{height} pixels")
+    fx = width / (2.0 * math.tan(fovx / 2.0))
+    fy = height / (2.0 * math.tan(fovy / 2.0))
+    return (2.0 * math.atan(w / (2.0 * fx)), 2.0 * math.atan(h / (2.0 * fy)),
+            (width - w) // 2, (height - h) // 2)
+
+
+def slot_capacity(demand: int) -> int:
+    """Twice a render's slot ``demand``, rounded up to a multiple of 1024:
+    the capacity the late-state checks render with, past the demand."""
+    return -(-2 * demand // 1024) * 1024
+
+
+def read_state_crop(path: str) -> Dict[str, np.ndarray]:
+    """A late-state fixture (``tools/torch_c4_probe.py --cut``) as numpy
+    arrays: the six parameter arrays (``PARAM_NAMES``) of the Gaussians kept,
+    the window's camera (``R``, ``T``, ``fovx``, ``fovy``, ``width``,
+    ``height``), its ground truth ``gt`` (3, h, w), the scene's ``extent``,
+    the snapshot's ``iteration`` and active ``sh_degree``."""
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def state_crop_camera(crop: Dict[str, np.ndarray], device=None) -> CameraParams:
+    return make_camera(crop["R"], crop["T"], float(crop["fovx"]), float(crop["fovy"]),
+                       int(crop["width"]), int(crop["height"]), device=device)
+
+
+def state_crop_model(crop: Dict[str, np.ndarray], capacity: int, device=None):
+    """The fixture's Gaussians in the first slots of a model of ``capacity``
+    empty slots, at the snapshot's SH degree and the scene's extent."""
+    from gaussian_splatting_torch.models.gaussians import PARAM_NAMES, GaussianModel
+
+    n = crop["means3d"].shape[0]
+    degree = int(crop["sh_degree"])
+    model = GaussianModel.empty(capacity, degree, device=device)
+    with torch.no_grad():
+        for name in PARAM_NAMES:
+            getattr(model, name)[:n] = torch.from_numpy(crop[name])
+        model.alive[:n] = True
+    model.spatial_lr_scale = float(crop["extent"])
+    return model

@@ -232,6 +232,138 @@ def test_thicket_schedule_matches_jax_with_its_noise(tmp_path, monkeypatch):
     np.testing.assert_allclose(port[:, 0], ref[:, 0], atol=1e-5, rtol=0)
 
 
+def test_plain_schedule_matches_jax_through_its_boundaries(tmp_path, monkeypatch):
+    """Spheres' switches (none beyond the corpus's ``-w --eval``) through both
+    packages' ``train()`` across the boundaries a 25-iteration run never
+    reaches: four densifications with the 20 px screen-size prune active
+    (Gaussians pruned by their radius alone: the prune without the radius
+    condition, on the same state and noise, prunes fewer), three opacity
+    resets (every 25, and the white-background one at ``densify_from_iter``),
+    the SH ramp at 1000, the end of densification at 1000
+    and the position LR on the last tenth of its decay, with JAX's split
+    noise fed to the port and JAX rendering through its dense oracle.  The
+    ramp is fixed at multiples of 1000 in both loops and the port's CPU path
+    costs ~0.3 s an iteration here, so both resume from one checkpoint at
+    iteration 930 (JAX's initial state of the 120-point cloud, carried
+    across by ``interop``) and train to 1005 at 48x36.  Every iteration's
+    loss within 1e-5, Gaussian count and active SH degree equal; the same
+    iterations densify and reset; each densify clones, splits, prunes and
+    prunes by radius the same counts."""
+    import dataclasses
+    import random
+
+    import jax
+    import jax.numpy as jnp
+
+    from gaussian_splatting_tpu.config import ModelConfig as JaxModelConfig
+    from gaussian_splatting_tpu.config import OptimizationConfig as JaxOpt
+    from gaussian_splatting_tpu.config import PipelineConfig as JaxPipe
+    from gaussian_splatting_tpu.models import densify as jdensify
+    from gaussian_splatting_tpu.scene import Scene as JaxScene
+    from gaussian_splatting_tpu.train import loop as jloop
+    from gaussian_splatting_tpu.train.step import init_train_state as jax_init_train_state
+    from gaussian_splatting_torch import interop
+    from gaussian_splatting_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from gaussian_splatting_torch.models import densify
+    from gaussian_splatting_torch.train import loop
+
+    data = corpus.generate("spheres", str(tmp_path / "data"), device="cpu", num_train=4,
+                           num_test=1, width=48, height=36)
+    rng = np.random.default_rng(0)
+    save_point_cloud_ply(os.path.join(data, "points3d.ply"),
+                         (rng.random((120, 3)) * 2.6 - 1.3).astype(np.float32),
+                         (rng.random((120, 3)) * 255).astype(np.uint8))
+    start, end = 930, 1005
+    schedule = dict(iterations=end, densify_from_iter=935, densification_interval=15,
+                    densify_until_iter=1000, opacity_reset_interval=25,
+                    position_lr_max_steps=end)
+    scene = dict(source_path=data, eval=True, white_background=True)
+    random.seed(0)
+    jstate = jax_init_train_state(JaxScene(JaxModelConfig(**scene), capacity=512).gaussians, 4)
+    jstate = dataclasses.replace(jstate, step=jnp.int32(start))
+    ckpt = {"jax": str(tmp_path / f"chkpnt{start}.pkl"), "port": str(tmp_path / f"chkpnt{start}.pth")}
+    jloop.save_checkpoint(ckpt["jax"], jstate, start)
+    loop.save_checkpoint(ckpt["port"], interop.train_state_from_jax(
+        **interop.jax_state_leaves(jstate), device="cpu"), start)
+
+    events = {"port": [], "jax": []}  # (iteration, "reset") or (iteration, counts...)
+    key = [jax.random.PRNGKey(0)]  # split per densify, as JAX's loop does
+    real_densify, real_reset = loop.densify_step, loop.opacity_reset_step
+
+    def port_densify(state, generator, *, opt, max_screen_size):
+        key[0], sub = jax.random.split(key[0])
+        noise = tuple(torch.from_numpy(np.array(jax.random.normal(k, (state.model.capacity, 3))))
+                      for k in jax.random.split(sub))
+        model = state.model
+        stats = {k: getattr(model, k).clone() for k in ("alive", "max_radii2d", "xyz_grad_accum",
+                                                        "denom")}
+        stats["max_radii2d"].zero_()  # the prune without the radius condition
+        blind = densify.densify_and_prune(
+            {k: v.detach() for k, v in model.params().items()}, stats,
+            grad_threshold=opt.densify_grad_threshold, min_opacity=0.005,
+            extent=model.spatial_lr_scale, max_screen_size=max_screen_size,
+            percent_dense=opt.percent_dense, noise=noise)
+        it = int(state.step)
+        state, out = real_densify(state, generator, opt=opt, max_screen_size=max_screen_size,
+                                  noise=noise)
+        events["port"].append((it, max_screen_size, int(out["cloned"]), int(out["split"]),
+                               int(out["pruned"]), int(out["pruned"]) - int(blind.num_pruned)))
+        return state, out
+
+    def port_reset(state):
+        events["port"].append((int(state.step), "reset"))
+        return real_reset(state)
+
+    real_jax_densify, real_jax_reset = jloop.densify_step, jloop.opacity_reset_step
+
+    def jax_densify(state, k, *, opt, max_screen_size):
+        m = state.model
+        blind = jdensify.densify_and_prune(
+            m.params, m.aux._replace(max_radii2d=jnp.zeros_like(m.aux.max_radii2d)), k,
+            grad_threshold=opt.densify_grad_threshold, min_opacity=0.005,
+            extent=m.spatial_lr_scale, max_screen_size=max_screen_size,
+            percent_dense=opt.percent_dense)
+        state, out = real_jax_densify(state, k, opt=opt, max_screen_size=max_screen_size)
+        jax.debug.callback(lambda *v: events["jax"].append(
+            (int(v[0]), max_screen_size, *(int(x) for x in v[1:4]), int(v[3]) - int(v[4]))),
+            state.step, out["cloned"], out["split"], out["pruned"], blind.num_pruned)
+        return state, out
+
+    def jax_reset(state):
+        jax.debug.callback(lambda it: events["jax"].append((int(it), "reset")), state.step)
+        return real_jax_reset(state)
+
+    monkeypatch.setattr(loop, "densify_step", port_densify)
+    monkeypatch.setattr(loop, "opacity_reset_step", port_reset)
+    monkeypatch.setattr(jloop, "densify_step", jax_densify)
+    monkeypatch.setattr(jloop, "opacity_reset_step", jax_reset)
+    seen = {"port": [], "jax": []}
+
+    def record(name):
+        return lambda it, s, m: seen[name].append(
+            (it, float(m["loss"]), int(m["num_alive"]), int(s.model.sh_degree)))
+
+    kw = dict(test_iterations=(), save_iterations=(), quiet=True, capacity=512, seed=0)
+    loop.train(ModelConfig(**scene), OptimizationConfig(**schedule), PipelineConfig(),
+               device="cpu", on_iteration=record("port"), start_checkpoint=ckpt["port"], **kw)
+    key[0] = jax.random.PRNGKey(0)
+    jloop.train(JaxModelConfig(**scene), JaxOpt(**schedule), JaxPipe(rasterizer_impl="dense"),
+                on_iteration=record("jax"), start_checkpoint=ckpt["jax"], **kw)
+    port, ref = (np.array(seen[k]) for k in ("port", "jax"))
+    assert port[:, 0].tolist() == ref[:, 0].tolist() == list(range(start + 1, end + 1))
+    np.testing.assert_array_equal(port[:, 2:], ref[:, 2:])  # Gaussians, SH degree
+    np.testing.assert_allclose(port[:, 1], ref[:, 1], atol=1e-5, rtol=0)
+    assert port[port[:, 0] < 1000, 3].max() == 0 and port[port[:, 0] >= 1000, 3].min() == 1
+    assert events["port"] == events["jax"]
+    resets = [it for it, *rest in events["port"] if rest == ["reset"]]
+    densifies = [e for e in events["port"] if e[1] != "reset"]
+    assert resets == [935, 950, 975]
+    assert [e[0] for e in densifies] == [945, 960, 975, 990]
+    assert all(e[1] == 20 for e in densifies) and sum(e[-1] for e in densifies) >= 1
+    assert port[-1, 2] > port[0, 2]  # densification grew the model
+    print(f"largest loss gap {np.abs(port[:, 1] - ref[:, 1]).max():.3e}; boundaries {events['port']}")
+
+
 def test_start_of_a_corpus_run_matches_jax_at_full_size(tmp_path, monkeypatch):
     """The state a corpus run starts from, at full size: the default
     generation's 100 train views at 800x600 (shaded flat: only the cameras
