@@ -5,7 +5,7 @@ test_train_loop_parallel_gshard_matches_single``'s run).
 
 - Only rank 0 writes under the model directory (an audit hook on each rank
   records every path it opens for writing or creates).
-- The DP ranks end with the same state, bit for bit.
+- The DP ranks end with the same state, bit for bit, and the loss falls.
 - gshard's gathered state and its losses track the single-device run's:
   losses within 5e-3 (JAX's bound), the same alive slots after the densify
   (which grows the capacity: every slot is alive at the start), means
@@ -65,6 +65,14 @@ def test_dp_ranks_end_identical(runs):
     for name, value in a["state"].items():
         np.testing.assert_array_equal(b["state"][name], value, err_msg=name)
     assert int(a["state"]["step"]) == OPT["iterations"]
+
+
+def test_dp_loss_falls(runs):
+    """JAX ``tests/test_parallel.py::test_train_loop_parallel_dp_runs``'s
+    check: under ``--parallel dp`` the loss ends below where it started."""
+    results, _, _ = runs
+    losses = results[0]["dp"]["losses"]
+    assert losses[-1] < losses[0]
 
 
 def test_gshard_tracks_the_single_device_run(runs):

@@ -16,10 +16,14 @@ training CLI (``train/cli.py``).
   seeded draws stay aligned between the loops), and with antialiasing,
   sparse Adam and the exposure affine together (exposures and their moments
   too).
+- The counterparts of JAX's ``tests/test_pipeline_e2e.py``: the training
+  report through ``tb_writer``, a short run through a densification window
+  (its loss, snapshot and kept slack), and a checkpoint's round trip.
 
 The CLI's own test is ``tests/test_torch_train_cli.py``.
 """
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -32,8 +36,10 @@ from gaussian_splatting_tpu.config import OptimizationConfig as JaxOpt
 from gaussian_splatting_tpu.config import PipelineConfig as JaxPipe
 from gaussian_splatting_tpu.train import loop as jloop
 from gaussian_splatting_tpu.train.step import group_lrs
-from gaussian_splatting_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+from gaussian_splatting_torch.config import (ModelConfig, OptimizationConfig, PipelineConfig,
+                                             RasterizeConfig)
 from gaussian_splatting_torch.data.ply import save_point_cloud_ply
+from gaussian_splatting_torch.models.gaussians import load_model_ply
 from gaussian_splatting_torch.train import loop
 from gaussian_splatting_torch.utils.synthetic_dataset import generate_blender_dataset
 
@@ -234,3 +240,102 @@ def _three_real_iterations(dataset, tmp_path, switches=""):
         j_mu = np.asarray(jstate.exp_adam.mu)
         np.testing.assert_allclose(state.exp_adam.mu["exposures"].numpy() / np.abs(j_mu).max(),
                                    j_mu / np.abs(j_mu).max(), atol=3 * 3e-4)
+
+
+class _Writer:
+    """A stand-in for tensorboard's ``SummaryWriter``: each call's tag and
+    step, and its value's checks."""
+
+    def __init__(self):
+        self.scalars, self.images, self.hists = {}, {}, {}
+
+    def add_scalar(self, tag, value, step):
+        assert np.isfinite(value), tag
+        self.scalars.setdefault(tag, {})[step] = float(value)
+
+    def add_images(self, tag, img, global_step=None):
+        assert img.ndim == 4 and img.min() >= 0 and img.max() <= 1, tag
+        self.images.setdefault(tag, []).append((global_step, img.shape))
+
+    def add_histogram(self, tag, values, step):
+        assert len(values) > 0, tag
+        self.hists.setdefault(tag, {})[step] = np.asarray(values)
+
+
+def test_training_report_writes_the_jax_events(dataset, tmp_path):
+    """The training report through ``tb_writer``, as JAX's
+    ``test_pipeline_e2e.py::test_observability_events`` holds JAX's: the
+    loss, point count and iteration time of every step, and at a test
+    iteration each split's L1 and PSNR, its views' renders (ground truth on
+    the first report) and the opacity histogram of the live Gaussians."""
+    port_cfg, _ = _cfgs(dataset, str(tmp_path / "m"), 8)
+    writer = _Writer()
+    state = loop.train(*port_cfg, test_iterations=(5,), save_iterations=(), quiet=True,
+                       capacity=512, seed=1, tb_writer=writer, device="cpu")
+    steps = set(range(1, 9))
+    for tag in ("train_loss_patches/l1_loss", "train_loss_patches/total_loss", "iter_time"):
+        assert set(writer.scalars[tag]) == steps, tag
+    assert all(v > 0 for v in writer.scalars["iter_time"].values())
+    assert set(writer.scalars["total_points"]) == steps  # the steps' and the report's
+    for split in ("test", "train"):
+        for what in ("l1_loss", "psnr"):
+            assert set(writer.scalars[f"{split}/loss_viewpoint - {what}"]) == {5}
+    hist = writer.hists["scene/opacity_histogram"][5]
+    assert ((hist > 0) & (hist < 1)).all()
+    assert len(hist) == writer.scalars["total_points"][5] == int(state.model.alive.sum())
+    shape = (1, 3, 24, 32)
+    views = {t for t in writer.images if t.endswith("/render")}
+    assert len([t for t in views if t.startswith("test_view_")]) == 2
+    assert len([t for t in views if t.startswith("train_view_")]) == 5
+    for tag, calls in writer.images.items():
+        assert calls == [(5, shape)], tag
+    assert {t.replace("/ground_truth", "/render") for t in writer.images
+            if t.endswith("/ground_truth")} == views
+
+
+def test_short_training_improves_and_keeps_its_slack(dataset, tmp_path):
+    """JAX's ``test_pipeline_e2e.py::test_short_training_improves`` on the
+    port, on a shorter schedule: 30 iterations through a densification
+    window lower the loss by a tenth, the snapshot at 30 loads, and the
+    trained ``instance_slack`` kept in ``raster_state.json`` seeds a later
+    render's."""
+    model_dir = str(tmp_path / "m")
+    (mcfg, opt, pipe), _ = _cfgs(dataset, model_dir, 30, densification_interval=10,
+                                  densify_until_iter=25, opacity_reset_interval=10_000)
+    opt.densify_from_iter = 10
+    losses, alive = [], []
+
+    def track(it, state, m):
+        losses.append(float(m["loss"]))
+        alive.append(int(state.model.num_alive()))
+
+    loop.train(mcfg, opt, pipe, test_iterations=(), save_iterations=(30,), quiet=True,
+               capacity=512, seed=1, device="cpu", on_iteration=track)
+    assert len(losses) == 30 and np.isfinite(losses).all()
+    assert np.mean(losses[-10:]) < np.mean(losses[:10]) * 0.9
+    assert alive[-1] != alive[0]  # the window densified
+    ply = os.path.join(model_dir, "point_cloud", "iteration_30", "point_cloud.ply")
+    assert int(load_model_ply(ply, max_sh_degree=3, device="cpu").num_alive()) > 0
+    with open(os.path.join(model_dir, "raster_state.json")) as f:
+        kept = json.load(f)
+    seeded = loop.load_raster_state(model_dir, RasterizeConfig())
+    assert seeded.instance_slack == max(kept["instance_slack"], RasterizeConfig().instance_slack)
+
+
+def test_checkpoint_round_trip(dataset, tmp_path):
+    """JAX's ``test_pipeline_e2e.py::test_checkpoint_roundtrip`` on the
+    port: every tensor of a trained state, its model's static fields and
+    the iteration come back from ``chkpnt<it>.pth`` unchanged."""
+    port_cfg, _ = _cfgs(dataset, str(tmp_path / "m"), 5)
+    state = loop.train(*port_cfg, test_iterations=(), save_iterations=(), quiet=True,
+                       capacity=512, device="cpu")
+    path = str(tmp_path / "chkpnt5.pth")
+    loop.save_checkpoint(path, state, 5)
+    back, iteration = loop.load_checkpoint(path, device="cpu")
+    assert iteration == 5 and int(back.adam.count) == int(state.adam.count) == 5
+    ours, theirs = state.tensors(), back.tensors()
+    assert set(ours) == set(theirs)
+    for name, t in ours.items():
+        assert torch.equal(theirs[name], t.detach()), name
+    for field in ("max_sh_degree", "sh_degree", "spatial_lr_scale"):
+        assert getattr(back.model, field) == getattr(state.model, field), field

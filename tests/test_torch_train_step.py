@@ -10,7 +10,10 @@ covers the port's hand-written backward.  One step with the exposure and
 depth terms on: loss within 1e-5, Adam moments within 3e-4 of each leaf's
 largest magnitude, parameters within 3e-4 x lr wherever JAX's gradient is
 not dust, and rows whose gradient is exactly zero bitwise unchanged in both.
-Densification uses the noise JAX draws from the same key."""
+Densification uses the noise JAX draws from the same key.  The loop's eval
+render is held to the invariants of JAX's ``render_camera`` tests: the run's
+antialiasing and a given exposure apply, and an overflowing render retries
+until it is complete."""
 
 import dataclasses
 from functools import partial
@@ -289,3 +292,76 @@ def test_model_helpers():
     assert torch.equal(big.means3d[:CAP], model.means3d) and not bool(big.alive[CAP:].any())
     assert float(big.opacities[CAP:].detach().max()) == -10.0 and big.spatial_lr_scale == 1.5
     assert int(big.num_alive()) == 120
+
+
+def _jax_render(jstate, cam, bg, **raster):
+    """JAX's eval render (``train.loop.render_camera``) through its dense
+    oracle, as numpy."""
+    from types import SimpleNamespace
+
+    from gaussian_splatting_tpu.train.loop import render_camera
+
+    camera = SimpleNamespace(cam=cam, exposure_idx=0, image_name="c0")
+    image, _ = render_camera(jstate, camera, JaxRaster(impl="dense", **raster), bg)
+    return np.asarray(image)
+
+
+def test_render_camera_honors_raster_config_and_exposure():
+    """JAX's ``test_train_step.py::test_render_camera_honors_raster_config_and_exposure``
+    on the port: the loop's eval render applies the run's antialiasing, and
+    a pretrained exposure given to it overrides the state's.  Both renders
+    are held to JAX's on the same state."""
+    from types import SimpleNamespace
+
+    from gaussian_splatting_torch.train.loop import render_camera
+
+    jstate = _jax_setup()[0]
+    state = train_state_from_jax(**_leaves(jstate), device="cpu")
+    jcam, cam = _cams()
+    camera = SimpleNamespace(cam=cam, exposure_idx=0, image_name="c0")
+    bg = torch.zeros(3)
+    plain, _ = render_camera(state, camera, RasterizeConfig(), bg)
+    aa, _ = render_camera(state, camera, RasterizeConfig(antialiasing=True), bg)
+    assert float((aa - plain).abs().max()) > 1e-4
+    np.testing.assert_allclose(plain.numpy(), _jax_render(jstate, jcam, jnp.zeros(3)), atol=2e-4)
+    np.testing.assert_allclose(aa.numpy(), _jax_render(jstate, jcam, jnp.zeros(3),
+                                                       antialiasing=True), atol=2e-4)
+    exposure = torch.cat([0.5 * torch.eye(3), torch.full((3, 1), 0.1)], dim=1)
+    exposed, _ = render_camera(state, camera, RasterizeConfig(), bg, exposure=exposure)
+    np.testing.assert_allclose(exposed.numpy(), np.clip(0.5 * plain.numpy() + 0.1, 0.0, 1.0),
+                               atol=1e-5)
+    state.exposures[0] = exposure  # the trained affine, used under use_exposure
+    trained, _ = render_camera(state, camera, RasterizeConfig(), bg, use_exposure=True)
+    assert torch.equal(trained, exposed)
+
+
+def test_eval_render_retries_on_instance_overflow():
+    """JAX's ``test_train_step.py::test_eval_render_retries_on_instance_overflow``
+    on the port: Gaussians that each cover many tiles overflow a render at
+    the default slack; the eval render (``render.render_camera``, which the
+    loop's wraps) doubles the slack until the render is complete, and returns
+    what an ample slack renders and what JAX renders on the same state."""
+    from types import SimpleNamespace
+
+    from gaussian_splatting_torch.render import render_camera as render_view
+    from gaussian_splatting_torch.train.loop import render_camera
+
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(-0.3, 0.3, (64, 3)).astype(np.float32)
+    cols = rng.uniform(0, 1, (64, 3)).astype(np.float32)
+    jmodel = create_from_pcd(pts, cols, max_sh_degree=1, spatial_lr_scale=1.5, capacity=128)
+    # each Gaussian covers a large tile footprint
+    jmodel = dataclasses.replace(
+        jmodel, params=jmodel.params._replace(scales=jmodel.params.scales + 2.0))
+    jstate = jstep.init_train_state(jmodel, num_images=1)
+    state = train_state_from_jax(**_leaves(jstate), device="cpu")
+    camera = SimpleNamespace(cam=random_scene(4, width=128, height=96, seed=2, device="cpu").cam,
+                             image_name="x", exposure_idx=0)
+    bg = torch.zeros(3)
+    image, out, retries = render_view(state.model, camera, RasterizeConfig(instance_slack=2.0), bg)
+    assert not bool(out.overflow) and retries > 0  # complete, after a retry at least
+    ample, out_ample = render_camera(state, camera, RasterizeConfig(instance_slack=512.0), bg)
+    assert not bool(out_ample.overflow)
+    np.testing.assert_allclose(image.numpy(), ample.numpy(), atol=2e-5)
+    jcam = jax_random_scene(4, width=128, height=96, seed=2).cam
+    np.testing.assert_allclose(image.numpy(), _jax_render(jstate, jcam, jnp.zeros(3)), atol=2e-4)
