@@ -14,8 +14,8 @@ Phases (any failure raises, and the script exits non-zero):
               raster_state.json a trainer leaves: the instance slack that fits
               the worst test view's measured slot demand plus 5%
   4. render path    ``gaussian_splatting_torch.render.main`` renders the 3
-              test views on the card, once each; K1-K3 must have launched
-  5. render parity  K1-K3 against their plain PyTorch twins on the render
+              test views on the card, once each; K8 and K1-K3 must have launched
+  5. render parity  K8 and K1-K3 against their plain PyTorch twins on the render
               path's inputs, the whole render against the all-plain path, and
               a small render against the dense oracle; K1's global loads and
               sectors per warp-load before its block design and now
@@ -23,7 +23,7 @@ Phases (any failure raises, and the script exits non-zero):
               design and now, and its sector floor (``untile_work``); the
               blend's pairs, instances per tile and K2's warp-steps
               (``blend_work``)
-  6. render timing  CUDA-event times of K1-K3, their twins and the library
+  6. render timing  CUDA-event times of K8 and K1-K3, their twins and the library
               yardsticks, beside the bounds computed from this run's inputs
   7. render profile one view under torch.profiler
   8. train parity   on the first training step's own inputs (the fixture
@@ -389,6 +389,7 @@ def parity(model_dir, device="cuda"):
     from gaussian_splatting_torch.ops import blend as bl
     from gaussian_splatting_torch.ops import expand as ex
     from gaussian_splatting_torch.ops import instances as inst
+    from gaussian_splatting_torch.ops import project as pj
     from gaussian_splatting_torch.ops import untile as ut
     from gaussian_splatting_torch.ops.preprocess import preprocess
     from gaussian_splatting_torch.ops.rasterize import _render, blend_fields
@@ -406,6 +407,18 @@ def parity(model_dir, device="cuda"):
     capacity = inst.required_capacity(model.capacity, slack)
     params = model.activated_params()
     with torch.no_grad():
+        # K8: every output bitwise
+        pkw = dict(sh_degree=SH_DEGREE)
+        fused = pj.project_table(model.stored(), cam, **pkw)
+        twin = pj.project_table_plain(model.stored(), cam, **pkw)
+        torch.cuda.synchronize()
+        bits = lambda t: t.contiguous().view(torch.int32)
+        if not (torch.equal(bits(fused.fields), bits(twin.fields))
+                and torch.equal(fused.radii, twin.radii) and int(fused.total) == int(twin.total)
+                and all(torch.equal(bits(a), bits(b)) for a, b in zip(fused.table, twin.table))):
+            raise RuntimeError("project kernel disagrees with its plain version")
+        print(f"project: bitwise equal over {model.capacity} Gaussians, every output")
+
         proj = preprocess(*params, cam, sh_degree=SH_DEGREE)
         gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
         num_tiles = gx * gy
@@ -619,7 +632,8 @@ def profile_call(fn, kernels, top=12):
           f"({100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device ops")
     own_ms = {}
     for name in kernels:
-        own = [e for e in events if f"::{name}_kernel(" in e.key]
+        own = [e for e in events if f"::{name}_kernel(" in e.key
+               or f"::{name}_kernel<" in e.key]  # a template's instance
         if not own:
             raise RuntimeError(f"profile shows no {name} kernel on the device")
         # K1 runs a partition grid before each expand grid: its time counts too
@@ -656,8 +670,10 @@ def profile_phase(ctx):
 def timing(ctx):
     import torch
 
+    from benchmark import work
     from gaussian_splatting_torch.ops import blend as bl
     from gaussian_splatting_torch.ops import expand as ex
+    from gaussian_splatting_torch.ops import project as pj
     from gaussian_splatting_torch.ops import untile as ut
 
     phase("render timing")
@@ -665,6 +681,18 @@ def timing(ctx):
     gx, gy, num_tiles = ctx["gx"], ctx["gy"], ctx["num_tiles"]
     with torch.no_grad():
         rows = []
+        stored, cam = ctx["model"].stored(), ctx["camera"].cam
+        pkw = dict(sh_degree=SH_DEGREE)
+        P = stored.means3d.shape[0]
+        # preprocess_bytes' rows and the two (P, 16) int32 span rows
+        p_bytes = work.preprocess_bytes(P, False) + P * 2 * ex.MAX_SPAN_ROWS * 4
+        print(f"project moves at least {p_bytes:.0f} bytes")
+        rows.append(kernel_row(
+            "project", "none (plain XLA in JAX)", 0.0,
+            cuda_ms(lambda: pj.project_table(stored, cam, **pkw)),
+            cuda_ms(lambda: pj.project_table_plain(stored, cam, **pkw), iters=5, warmup=1),
+            p_bytes, 0, None,
+        ))
         t_bytes = expand_bytes(table, ctx["cap_int"])
         print(f"expand moves at least {t_bytes} bytes")
         rows.append(kernel_row(
@@ -1080,25 +1108,21 @@ def _field_grads(setup, view, kernels, state=None, raster=None, exposure=None):
     from gaussian_splatting_torch.ops import untile as ut
     from gaussian_splatting_torch.ops.losses import photometric_loss
     from gaussian_splatting_torch.ops.preprocess import clip
-    from gaussian_splatting_torch.ops.rasterize import (
-        _detached,
-        _RasterCore,
-        blend_fields,
-        project,
-    )
+    from gaussian_splatting_torch.ops.rasterize import _RasterCore, blend_fields, project
     from gaussian_splatting_torch.train.step import apply_exposure
 
     state = state or setup["state"]
     raster = raster or setup["raster"]
     model, cam, batch = state.model, setup["cams"][view].cam, setup["batches"][view]
     with torch.no_grad():
-        proj = project(*model.activated_params(), cam, sh_degree=model.max_sh_degree,
+        proj = project(model.activated_params(), cam, sh_degree=model.max_sh_degree,
                        cfg=raster)
     fields = blend_fields(proj).requires_grad_(True)
     gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
     capacity = inst.required_capacity(model.capacity, raster.instance_slack)
-    packed5, overflow, _ = _RasterCore.apply(fields, _detached(proj), gx, gy, 16, 16,
-                                             capacity, kernels)
+    table, total = inst.build_table(proj)
+    packed5, overflow, _ = _RasterCore.apply(fields, table, total, gx, gy, 16, 16, capacity,
+                                             kernels)
     img = ut.untile_differentiable(packed5, grid_x=gx, grid_y=gy, tile_w=16, tile_h=16,
                                    width=WIDTH, height=HEIGHT, kernels=kernels)
     image = clip(img[:3] + img[3][None] * batch.bg_color[:, None, None], 0.0, 1.0)
@@ -1124,8 +1148,8 @@ def backward_inputs(setup, proj, fields, capacity):
     gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
     batch = setup["batches"][0]
     with torch.no_grad():
-        layout = inst.build_instances(proj, grid_x=gx, grid_y=gy, capacity=capacity,
-                                      grad_layout=True)
+        layout = inst.build_instances(*inst.build_table(proj), grid_x=gx, grid_y=gy,
+                                      capacity=capacity, grad_layout=True)
         args = (layout.sorted_owner, layout.tile_starts, layout.tile_ends, fields)
         packed = bl.blend_forward(*args, grid_x=gx)
         ukw = dict(grid_x=gx, grid_y=gy, tile_w=16, tile_h=16)
@@ -2873,7 +2897,7 @@ def late_state_phase(device="cuda"):
     cam = state_crop_camera(crop, device)
     degree = int(crop["sh_degree"])
     with torch.no_grad():
-        demand = int(project(*model.activated_params(), cam, sh_degree=degree)
+        demand = int(project(model.activated_params(), cam, sh_degree=degree)
                      .tiles_touched.sum())
     slots = slot_capacity(demand)
     state = init_train_state(model, 1)
@@ -3330,7 +3354,7 @@ def check_expand(model, cam, raster):
     from gaussian_splatting_torch.ops.rasterize import project
 
     with torch.no_grad():
-        table, _ = inst.build_table(project(*model.activated_params(), cam,
+        table, _ = inst.build_table(project(model.activated_params(), cam,
                                             sh_degree=model.max_sh_degree, cfg=raster))
     cap = inst.internal_capacity(inst.required_capacity(model.capacity, raster.instance_slack))
     gx, gy = -(-cam.width // 16), -(-cam.height // 16)
@@ -3362,7 +3386,7 @@ def kernel_row(name, replaces, err, ms, plain_ms, n_bytes, n_ops, library_ms):
 
 def add_launches(rows, launches):
     """Each row's ``launches``: the count on the path that carries the kernel
-    (render for K1-K3, train for K4-K6, segscan for K7), with every path's
+    (render for K8 and K1-K3, train for K4-K6, segscan for K7), with every path's
     count beside it."""
     from gaussian_splatting_torch import _kernels
 

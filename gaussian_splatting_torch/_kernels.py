@@ -36,11 +36,12 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas", "-v",
 )
 
-# The kernels each path launches: the render path K1-K3, the training step
-# (and the training loop around it) K1-K6; K7 lies on no path.
-RENDER_KERNELS = ("expand", "blend_forward", "untile")
-TRAIN_KERNELS = RENDER_KERNELS + ("retile", "blend_backward", "segment_reduce")
-KERNELS = TRAIN_KERNELS + ("segscan",)
+# The kernels each path launches: the render path K8 and K1-K3, the
+# training step (and the training loop around it) K1-K6; K7 lies on no path.
+RENDER_KERNELS = ("project", "expand", "blend_forward", "untile")
+TRAIN_KERNELS = ("expand", "blend_forward", "untile", "retile", "blend_backward",
+                 "segment_reduce")
+KERNELS = ("project",) + TRAIN_KERNELS + ("segscan",)
 
 # Launch counts per kernel.  ``launch`` adds one per successful launch.
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -172,9 +173,12 @@ def launch(name: str, fn_name: str, argtypes: Sequence, *args) -> None:
 
 
 def current_stream(device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream, without
+    building a ``torch.cuda.Stream`` object."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_cuda(name: str, *tensors, contiguous: bool = True) -> None:

@@ -21,6 +21,7 @@ from torch import nn
 from gaussian_splatting_torch import resolve_device
 from gaussian_splatting_torch.data.ply import load_gaussian_ply
 from gaussian_splatting_torch.ops.knn import knn_mean_sq_dist, knn_mean_sq_dist_exact
+from gaussian_splatting_torch.ops.project import StoredGaussians
 from gaussian_splatting_torch.ops.sh import num_sh_coeffs, rgb_to_sh
 
 PARAM_NAMES = ("means3d", "features_dc", "features_rest", "opacities", "scales", "quats")
@@ -95,24 +96,18 @@ class GaussianModel(nn.Module):
         """Raise the active SH degree by one, up to the maximum."""
         self.sh_degree = min(self.sh_degree + 1, self.max_sh_degree)
 
+    def stored(self) -> StoredGaussians:
+        """The stored tensors and the active SH degree, as the rasterizer
+        takes them for an inference render (``ops.rasterize.render_stored``)."""
+        return StoredGaussians(self.means3d, self.scales, self.quats, self.opacities,
+                               self.alive, self.features_dc, self.features_rest,
+                               self.sh_degree)
+
     def activated_params(self) -> Tuple[torch.Tensor, ...]:
         """Rasterizer inputs: (means, scales, unit quats, opacities, sh) with
         SH coefficients above the active degree zeroed and dead slots at
-        opacity 0 (JAX ``train/loop.py::_activated_params``)."""
-        sh = torch.cat([self.features_dc, self.features_rest], dim=1)
-        K = sh.shape[1]
-        degs = torch.floor(
-            torch.sqrt(torch.arange(K, dtype=torch.float32, device=sh.device))
-        ).to(torch.int32)
-        sh = torch.where((degs <= self.sh_degree)[None, :, None], sh, 0.0)
-        q = self.quats
-        return (
-            self.means3d,
-            torch.exp(self.scales),
-            q / torch.sqrt((q * q).sum(dim=-1, keepdim=True)),
-            torch.sigmoid(self.opacities) * self.alive,
-            sh,
-        )
+        opacity 0 (``StoredGaussians.activated``)."""
+        return self.stored().activated()
 
 
 def create_from_pcd(

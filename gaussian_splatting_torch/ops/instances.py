@@ -61,6 +61,19 @@ def internal_capacity(capacity: int) -> int:
     return -(-(capacity + 8 * CHUNK) // gran) * gran
 
 
+class ProjectedTable(NamedTuple):
+    """The per-Gaussian stage in the layout the tiled core reads: the
+    (P, 10) blend table, the radii, and the expansion table with its total
+    slot demand (sentinels included).  K8 (``ops/project.py``) writes it in
+    one pass; ``ops.rasterize.table_of`` builds it from a
+    ``ProjectedGaussians``."""
+
+    fields: torch.Tensor  # (P, 10) f32 in blend.F_* column order
+    radii: torch.Tensor  # (P,) int32
+    table: ex.ExpandTable
+    total: torch.Tensor  # () int64
+
+
 def build_table(proj: ProjectedGaussians):
     """Per-Gaussian expansion table and the total slot demand (sentinels
     included).  Returns (ExpandTable, total () int64)."""
@@ -108,7 +121,8 @@ def layout_from_keys(
 
 
 def build_instances(
-    proj: ProjectedGaussians,
+    table: ex.ExpandTable,
+    total: torch.Tensor,
     *,
     grid_x: int,
     grid_y: int,
@@ -116,13 +130,13 @@ def build_instances(
     use_kernels: bool = True,
     grad_layout: bool = False,
 ) -> InstanceLayout:
-    """``use_kernels=False`` runs the expand's plain twin on any device;
+    """The layout of ``build_table``'s table and slot demand.
+    ``use_kernels=False`` runs the expand's plain twin on any device;
     ``grad_layout=True`` keeps what the backward needs."""
     if capacity >= MAX_CAPACITY:
         raise ValueError(f"instance capacity {capacity} exceeds f32-exact range")
     num_tiles = grid_x * grid_y
     cap_int = internal_capacity(capacity)
-    table, total = build_table(proj)
     expand = ex.expand_instances if use_kernels else ex.expand_instances_plain
     keys, owner = expand(table, capacity=cap_int, grid_x=grid_x, num_tiles=num_tiles)
     return layout_from_keys(keys, owner, total, capacity=capacity, num_tiles=num_tiles,

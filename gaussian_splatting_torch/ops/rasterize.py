@@ -23,6 +23,7 @@ import torch
 from gaussian_splatting_torch.config import RasterizeConfig
 from gaussian_splatting_torch.ops import blend as bl
 from gaussian_splatting_torch.ops import instances as inst
+from gaussian_splatting_torch.ops import project as pj
 from gaussian_splatting_torch.ops import segreduce as sr
 from gaussian_splatting_torch.ops import untile as ut
 from gaussian_splatting_torch.ops.camera_math import CameraParams
@@ -78,8 +79,8 @@ class _RasterCore(torch.autograd.Function):
     gradients."""
 
     @staticmethod
-    def forward(ctx, fields, proj, grid_x, grid_y, tile_w, tile_h, capacity, kernels):
-        layout, packed = _bin_and_blend(proj, fields, grid_x, grid_y, tile_w, tile_h,
+    def forward(ctx, fields, table, total, grid_x, grid_y, tile_w, tile_h, capacity, kernels):
+        layout, packed = _bin_and_blend(table, total, fields, grid_x, grid_y, tile_w, tile_h,
                                         capacity, kernels, grad_layout=True)
         ctx.save_for_backward(fields)
         ctx.layout, ctx.packed, ctx.kernels = layout, packed, kernels
@@ -98,15 +99,15 @@ class _RasterCore(torch.autograd.Function):
         )
         reduce = sr.segment_reduce_rows if ctx.kernels else sr.segment_reduce_rows_plain
         d_fields = reduce(expansion_order(d_sorted, layout), layout.seg_offsets)
-        return (d_fields,) + (None,) * 7
+        return (d_fields,) + (None,) * 8
 
 
-def _bin_and_blend(proj, fields, grid_x, grid_y, tile_w, tile_h, capacity, kernels,
+def _bin_and_blend(table, total, fields, grid_x, grid_y, tile_w, tile_h, capacity, kernels,
                    grad_layout=False):
     """Instances (K1 + sort) and the blend (K2), or their twins: the layout
     and the packed (tiles, 256, 8) block."""
     layout = inst.build_instances(
-        proj, grid_x=grid_x, grid_y=grid_y, capacity=capacity,
+        table, total, grid_x=grid_x, grid_y=grid_y, capacity=capacity,
         use_kernels=kernels, grad_layout=grad_layout,
     )
     blend = bl.blend_forward if kernels else bl.blend_forward_plain
@@ -157,28 +158,53 @@ def render(
     return _render(*inputs, cam, bg_color, **kw)
 
 
-def _render(
-    means3d, scales, quats, opacities, sh, cam, bg_color, *, sh_degree,
-    cfg=RasterizeConfig(), capacity=None, scale_modifier=1.0, impl="auto",
-    means2d_tap=None, kernels=True,
+def render_stored(
+    gaussians: pj.StoredGaussians,
+    cam: CameraParams,
+    bg_color: torch.Tensor,
+    *,
+    sh_degree: int,
+    cfg: RasterizeConfig = RasterizeConfig(),
+    scale_modifier: float = 1.0,
 ) -> RenderResult:
-    """``render`` without its ``inference`` switch.  ``kernels=False`` runs
-    the tiled path, forward and backward, through the kernels' plain twins
-    on any device: the reference that the kernel path is held against on
-    the card."""
+    """Inference render of a model's stored tensors
+    (``GaussianModel.stored()``).  The tiled path takes their whole
+    per-Gaussian stage through ``project`` in one pass; the dense path
+    renders their activation."""
+    if cfg.impl == "dense":
+        gaussians = gaussians.activated()
+    with torch.no_grad():
+        return _rasterize(gaussians, cam, bg_color, sh_degree=sh_degree, cfg=cfg,
+                          scale_modifier=scale_modifier, impl=cfg.impl)
+
+
+def _render(means3d, scales, quats, opacities, sh, cam, bg_color, **kw) -> RenderResult:
+    """``render`` without its ``inference`` switch, on the five activated
+    tensors.  ``kernels=False`` runs the tiled path, forward and backward,
+    through the kernels' plain twins on any device: the reference that the
+    kernel path is held against on the card."""
+    return _rasterize((means3d, scales, quats, opacities, sh), cam, bg_color, **kw)
+
+
+def _rasterize(
+    gaussians, cam, bg_color, *, sh_degree, cfg=RasterizeConfig(), capacity=None,
+    scale_modifier=1.0, impl="auto", means2d_tap=None, kernels=True,
+) -> RenderResult:
+    """The render of ``gaussians``, the five activated tensors or, with
+    neither a tap nor the dense path, a ``StoredGaussians``."""
     if impl not in TILED_IMPLS + ("dense",):
         raise ValueError(f"unknown rasterizer impl: {impl}")
-    P = means3d.shape[0]
+    P = gaussians[0].shape[0]
     W, H = cam.width, cam.height
     tile_w, tile_h = cfg.tile_w, cfg.tile_h
     grid_x = (W + tile_w - 1) // tile_w
     grid_y = (H + tile_h - 1) // tile_h
+    device = gaussians[0].device
 
-    proj = project(means3d, scales, quats, opacities, sh, cam, sh_degree=sh_degree, cfg=cfg,
+    proj = project(gaussians, cam, sh_degree=sh_degree, cfg=cfg,
                    scale_modifier=scale_modifier)
     if means2d_tap is not None:
-        ndc_scale = torch.tensor([0.5 * W, 0.5 * H], dtype=torch.float32,
-                                 device=means3d.device)
+        ndc_scale = torch.tensor([0.5 * W, 0.5 * H], dtype=torch.float32, device=device)
         proj = proj._replace(means2d=proj.means2d + means2d_tap * ndc_scale)
 
     if impl == "dense":
@@ -189,7 +215,7 @@ def _render(
             final_T=out.final_T,
             radii=proj.radii,
             visibility=proj.radii > 0,
-            overflow=torch.zeros((), dtype=torch.bool, device=means3d.device),
+            overflow=torch.zeros((), dtype=torch.bool, device=device),
             num_instances=proj.tiles_touched.sum(dtype=torch.int32),
         )
 
@@ -198,8 +224,10 @@ def _render(
     else:
         capacity = -(-capacity // cfg.chunk) * cfg.chunk
 
+    if not isinstance(proj, inst.ProjectedTable):
+        proj = table_of(proj, blend_fields(proj))
     img, overflow, num_instances = rasterize_fields(
-        blend_fields(proj), proj, grid_x=grid_x, grid_y=grid_y, tile_w=tile_w,
+        proj, grid_x=grid_x, grid_y=grid_y, tile_w=tile_w,
         tile_h=tile_h, width=W, height=H, capacity=capacity, kernels=kernels)
     T_img = img[bl.O_T]
     color = img[bl.O_R : bl.O_B + 1] + T_img[None] * bg_color[:, None, None]
@@ -215,12 +243,25 @@ def _render(
 
 
 def project(
-    means3d, scales, quats, opacities, sh, cam, *, sh_degree, cfg=RasterizeConfig(),
-    scale_modifier=1.0,
-) -> ProjectedGaussians:
-    """``preprocess`` under ``cfg``'s switches: the antialiasing filter, and
-    the debug hooks (reference --compute_cov3D_python / --convert_SHs_python),
-    which compute the covariances / colours up front and feed them back in."""
+    gaussians, cam, *, sh_degree, cfg=RasterizeConfig(), scale_modifier=1.0,
+):
+    """``preprocess`` of the five activated tensors under ``cfg``'s
+    switches: the antialiasing filter, and the debug hooks (reference
+    --compute_cov3D_python / --convert_SHs_python), which compute the
+    covariances / colours up front and feed them back in.
+
+    A ``StoredGaussians`` in a render without autograd and without a debug
+    hook takes K8 (``ops.project``) to a ``ProjectedTable`` in one pass: the
+    kernel on the card, its plain twin on the CPU.  Otherwise it is
+    activated first."""
+    if isinstance(gaussians, pj.StoredGaussians):
+        if not (torch.is_grad_enabled() or cfg.compute_cov3D_python
+                or cfg.convert_SHs_python):
+            return pj.project_table(
+                gaussians, cam, sh_degree=sh_degree, tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+                scale_modifier=scale_modifier, antialiasing=cfg.antialiasing)
+        gaussians = gaussians.activated()
+    means3d, scales, quats, opacities, sh = gaussians
     cov3d_precomp = (
         build_covariance(scales, quats, scale_modifier)
         if cfg.compute_cov3D_python else None
@@ -237,28 +278,32 @@ def project(
     )
 
 
+def table_of(proj: ProjectedGaussians, fields: torch.Tensor) -> inst.ProjectedTable:
+    """``fields`` (differentiable) with ``proj``'s radii and expansion
+    table, the table built outside the graph (JAX ``stop_gradient``)."""
+    with torch.no_grad():
+        table, total = inst.build_table(proj)
+    return inst.ProjectedTable(fields=fields, radii=proj.radii, table=table, total=total)
+
+
 def rasterize_fields(
-    fields: torch.Tensor, proj: ProjectedGaussians, *, grid_x: int, grid_y: int,
-    tile_w: int, tile_h: int, width: int, height: int, capacity: int, kernels: bool = True,
+    proj: inst.ProjectedTable, *, grid_x: int, grid_y: int, tile_w: int, tile_h: int,
+    width: int, height: int, capacity: int, kernels: bool = True,
 ):
-    """The tiled core on a (P, 10) blend table and its binning geometry:
-    K1 + sort -> K2 -> K3, differentiable in ``fields`` (K5 -> K6 and K4)
-    when they require grad.  Returns the ``CT_COLS`` planes cropped to
-    (height, width), the overflow flag and the slot demand."""
+    """The tiled core on a blend table and its expansion table: K1 + sort
+    -> K2 -> K3, differentiable in ``proj.fields`` (K5 -> K6 and K4) when
+    they require grad.  Returns the ``CT_COLS`` planes cropped to (height,
+    width), the overflow flag and the slot demand."""
     untile_kw = dict(grid_x=grid_x, grid_y=grid_y, tile_w=tile_w, tile_h=tile_h,
                      width=width, height=height)
-    if torch.is_grad_enabled() and fields.requires_grad:
+    if torch.is_grad_enabled() and proj.fields.requires_grad:
         packed, overflow, num_instances = _RasterCore.apply(
-            fields, _detached(proj), grid_x, grid_y, tile_w, tile_h, capacity, kernels,
+            proj.fields, proj.table, proj.total, grid_x, grid_y, tile_w, tile_h, capacity,
+            kernels,
         )
         return ut.untile_differentiable(packed, **untile_kw, kernels=kernels), overflow, \
             num_instances
-    layout, packed = _bin_and_blend(proj, fields, grid_x, grid_y, tile_w, tile_h,
-                                    capacity, kernels)
+    layout, packed = _bin_and_blend(proj.table, proj.total, proj.fields, grid_x, grid_y,
+                                    tile_w, tile_h, capacity, kernels)
     untile = ut.untile if kernels else ut.untile_plain
     return untile(packed, **untile_kw, cols=bl.CT_COLS), layout.overflow, layout.num_instances
-
-
-def _detached(proj: ProjectedGaussians) -> ProjectedGaussians:
-    """The binning geometry, cut from the graph (JAX ``stop_gradient``)."""
-    return ProjectedGaussians(*(t.detach() for t in proj))

@@ -40,7 +40,7 @@ from gaussian_splatting_torch.ops.preprocess import (
     maximum,
     preprocess,
 )
-from gaussian_splatting_torch.ops.rasterize import blend_fields, rasterize_fields
+from gaussian_splatting_torch.ops.rasterize import blend_fields, rasterize_fields, table_of
 from gaussian_splatting_torch.parallel import collectives as coll
 from gaussian_splatting_torch.parallel import mesh
 from gaussian_splatting_torch.train.optim import AdamState
@@ -144,9 +144,9 @@ def stripe_from_records(
         cut_radius=geo[:, R_CUTR], span_x0=span_x0, span_cum=span_cum, span_flag=span_flag,
     )
     img, overflow, num_instances = rasterize_fields(
-        fields.contiguous(), pseudo, grid_x=grid_x, grid_y=grid_y_local, tile_w=tile_w,
-        tile_h=tile_h, width=width, height=grid_y_local * tile_h, capacity=capacity,
-        kernels=kernels)
+        table_of(pseudo, fields.contiguous()), grid_x=grid_x, grid_y=grid_y_local,
+        tile_w=tile_w, tile_h=tile_h, width=width, height=grid_y_local * tile_h,
+        capacity=capacity, kernels=kernels)
     color = img[bl.O_R : bl.O_B + 1] + img[bl.O_T][None] * bg_color[:, None, None]
     return color, img[bl.O_INVD], overflow, num_instances
 

@@ -26,7 +26,7 @@ from gaussian_splatting_torch.config import (
     load_config,
 )
 from gaussian_splatting_torch.models.gaussians import GaussianModel
-from gaussian_splatting_torch.ops.rasterize import RenderResult, render
+from gaussian_splatting_torch.ops.rasterize import RenderResult, render_stored
 from gaussian_splatting_torch.train.loop import load_raster_state
 from gaussian_splatting_torch.train.step import apply_exposure
 from gaussian_splatting_torch.utils.image import to_uint8, write_image
@@ -45,13 +45,12 @@ def render_camera(
     buffer overflows, double ``instance_slack`` and render again.
 
     Returns (image (3, H, W), RenderResult, retries)."""
-    means, scales, quats, opac, sh = model.activated_params()
+    gaussians = model.stored()
     cfg = raster
     retries = 0
     while True:
-        out: RenderResult = render(
-            means, scales, quats, opac, sh, camera.cam, bg,
-            sh_degree=model.max_sh_degree, inference=True, cfg=cfg,
+        out: RenderResult = render_stored(
+            gaussians, camera.cam, bg, sh_degree=model.max_sh_degree, cfg=cfg,
         )
         if not bool(out.overflow):
             break

@@ -546,16 +546,15 @@ def render_custom_cam(state: TrainState, cam, bg, scale_modifier: float = 1.0,
     frame overflows the instance buffer, doubles the slack and renders
     again; past slack 512 it returns the overflowed frame instead of
     raising, since a viewer frame is only looked at."""
-    from gaussian_splatting_torch.ops.rasterize import render
+    from gaussian_splatting_torch.ops.rasterize import render_stored
     from gaussian_splatting_torch.render import MAX_EVAL_SLACK
 
-    means, scales, quats, opac, sh = state.model.activated_params()
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=means.device)
+    gaussians = state.model.stored()
+    bg = torch.as_tensor(bg, dtype=torch.float32, device=gaussians.means3d.device)
     cfg = raster if raster is not None else RasterizeConfig()
     while True:
-        out = render(means, scales, quats, opac, sh, cam, bg,
-                     sh_degree=state.model.max_sh_degree,
-                     scale_modifier=float(scale_modifier), inference=True, cfg=cfg)
+        out = render_stored(gaussians, cam, bg, sh_degree=state.model.max_sh_degree,
+                            scale_modifier=float(scale_modifier), cfg=cfg)
         if not bool(out.overflow) or cfg.instance_slack > MAX_EVAL_SLACK:
             return out.image
         cfg = dataclasses.replace(cfg, instance_slack=cfg.instance_slack * 2.0)

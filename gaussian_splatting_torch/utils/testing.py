@@ -64,6 +64,31 @@ def random_arrays(
     return means, scales, quats, opac, sh
 
 
+def random_stored(num_gaussians: int, *, max_sh_degree: int, sh_degree: int, seed: int = 0,
+                  device=None):
+    """A model's stored tensors (``ops.project.StoredGaussians``) for K8's
+    edges, in view of ``random_scene``'s camera: a tenth of the means behind
+    it, a twentieth with scales of 0.3-1.5 (rects past 16 tile rows at 400
+    pixels and more), the rest near the frame and its edges; unnormalised
+    quaternions, opacity logits N(0, 2.5), 15% dead slots."""
+    from gaussian_splatting_torch.ops.project import StoredGaussians
+
+    rng = np.random.default_rng(seed)
+    P = num_gaussians
+    means = rng.normal(0.0, 1.2, (P, 3)).astype(np.float32)
+    means[: P // 10, 2] = rng.uniform(-9.0, -4.2, P // 10)
+    scales = np.log(rng.uniform(0.003, 0.08, (P, 3)))
+    scales[P // 10: P // 10 + P // 20] = np.log(rng.uniform(0.3, 1.5, (P // 20, 3)))
+    K = num_sh_coeffs(max_sh_degree)
+    arrays = (means, scales.astype(np.float32), rng.normal(0.0, 1.0, (P, 4)),
+              rng.normal(0.0, 2.5, P), rng.uniform(size=P) > 0.15,
+              rng.normal(0.0, 0.6, (P, 1, 3)), rng.normal(0.0, 0.2, (P, K - 1, 3)))
+    dev = resolve_device(device)
+    t = [torch.from_numpy(a if a.dtype == bool else a.astype(np.float32)).to(dev)
+         for a in arrays]
+    return StoredGaussians(*t, sh_degree)
+
+
 def random_scene(
     num_gaussians: int = 1000,
     *,

@@ -40,8 +40,9 @@ def backward_pair():
                      scale_range=(0.03, 0.2), device="cpu")
     proj = preprocess(s.means3d, s.scales, s.quats, s.opacities, s.sh, s.cam, sh_degree=0)
     gx, gy = -(-W // 16), -(-H // 16)
-    tl = inst.build_instances(proj, grid_x=gx, grid_y=gy,
-                              capacity=inst.required_capacity(600, 8.0), grad_layout=True)
+    tl = inst.build_instances(*inst.build_table(proj), grid_x=gx, grid_y=gy,
+                              capacity=inst.required_capacity(600, 8.0),
+                              grad_layout=True)
     assert not bool(tl.overflow)
     n = int(tl.n_valid)
     fields = blend_fields(proj)

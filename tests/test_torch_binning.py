@@ -68,7 +68,8 @@ def test_build_instances_matches_the_oracle_per_tile(seed, n):
                      scale_range=(0.01, 0.12), device="cpu")
     proj = preprocess(s.means3d, s.scales, s.quats, s.opacities, s.sh, s.cam, sh_degree=1)
     capacity = inst.required_capacity(n, 12.0)
-    layout = inst.build_instances(proj, grid_x=GX, grid_y=GY, capacity=capacity)
+    layout = inst.build_instances(*inst.build_table(proj), grid_x=GX, grid_y=GY,
+                                  capacity=capacity)
     old = bin_gaussians(proj, grid_x=GX, grid_y=GY, capacity=capacity)
     assert not bool(layout.overflow) and not bool(old.overflow)
     untouched = int((proj.tiles_touched == 0).sum())

@@ -49,7 +49,8 @@ def blended():
         chunk=512, interpret=True,
     ))
     proj = to_port_proj(jp)
-    tl = inst.build_instances(proj, grid_x=gx, grid_y=gy, capacity=capacity)
+    tl = inst.build_instances(*inst.build_table(proj), grid_x=gx, grid_y=gy,
+                              capacity=capacity)
     assert not bool(tl.overflow)
     tout = bl.blend_forward(tl.sorted_owner, tl.tile_starts, tl.tile_ends,
                             blend_fields(proj), grid_x=gx).numpy()

@@ -73,7 +73,8 @@ def test_layout_matches_jax(case):
         tile_w=tile, tile_h=tile, grad_layout=False, interpret=True,
     )
     proj = to_port_proj(jp)
-    tl = inst.build_instances(proj, grid_x=gx, grid_y=gy, capacity=capacity)
+    tl = inst.build_instances(*inst.build_table(proj), grid_x=gx, grid_y=gy,
+                              capacity=capacity)
 
     n = int(jl.n_valid)
     assert int(tl.n_valid) == n

@@ -9,20 +9,26 @@ They skip without a card.  On a machine with one (which need not have JAX;
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 from gaussian_splatting_torch import _kernels
 from gaussian_splatting_torch.config import RasterizeConfig
+from gaussian_splatting_torch.models.gaussians import GaussianModel
 from gaussian_splatting_torch.ops import blend as bl
 from gaussian_splatting_torch.ops import expand as ex
 from gaussian_splatting_torch.ops import instances as inst
+from gaussian_splatting_torch.ops import project as pj
 from gaussian_splatting_torch.ops import segreduce as sr
 from gaussian_splatting_torch.ops import untile as ut
+from gaussian_splatting_torch.ops.camera_math import look_at, make_camera
 from gaussian_splatting_torch.ops.lpips import make_lpips
 from gaussian_splatting_torch.ops.preprocess import preprocess
 from gaussian_splatting_torch.ops.rasterize import _render, blend_fields, expansion_order, render
+from gaussian_splatting_torch.render import render_camera
 from gaussian_splatting_torch.utils.synthetic_dataset import _analytic_scene, shade_analytic
 from gaussian_splatting_torch.utils.testing import (
     EXPAND_EDGE_CASES,
@@ -32,6 +38,7 @@ from gaussian_splatting_torch.utils.testing import (
     expand_edge_table,
     random_lpips_weights,
     random_scene,
+    random_stored,
     segreduce_edge_table,
     segscan_edge_table,
 )
@@ -82,7 +89,7 @@ def test_expand_kernel_matches_plain(cuda):
 def test_blend_kernel_matches_plain(cuda):
     _, proj = _scene_proj(cuda)
     gx, gy = _grid()
-    layout = inst.build_instances(proj, grid_x=gx, grid_y=gy,
+    layout = inst.build_instances(*inst.build_table(proj), grid_x=gx, grid_y=gy,
                                   capacity=inst.required_capacity(3000, 2.0))
     fields = blend_fields(proj)
     args = (layout.sorted_owner, layout.tile_starts, layout.tile_ends, fields)
@@ -123,6 +130,78 @@ def test_render_kernels_match_plain_path(cuda, antialiasing, sh_degree):
                                    atol=2e-4, rtol=0)
     assert torch.equal(fast.radii, plain.radii)
     assert int(fast.num_instances) == int(plain.num_instances)
+
+
+# K8's cases: (Gaussians, stored SH degree, active degree, antialiasing,
+# scale modifier, image size).  Every case has dead slots, Gaussians behind
+# the near plane and at the frame's edges (``random_stored``); P is no
+# multiple of the kernel's 128-thread block but in "one_block".
+PROJECT_CASES = {
+    "degree0": (3001, 0, 0, False, 1.0, (200, 120)),
+    "degree1_aa": (3001, 1, 1, True, 1.0, (200, 120)),
+    "degree2_modifier": (3001, 2, 2, False, 0.6, (200, 120)),
+    "degree3_active1_aa": (3001, 3, 1, True, 1.0, (200, 120)),
+    "degree3_tall_rects": (4001, 3, 3, False, 2.5, (640, 400)),
+    "degree3_tall_rects_aa_1080p": (5003, 3, 3, True, 1.0, (1920, 1080)),
+    "degree4_aa_modifier": (3001, 4, 4, True, 1.3, (97, 61)),
+    "degree4_active3": (3001, 4, 3, False, 1.0, (200, 120)),
+    "one_block": (128, 3, 3, False, 1.0, (200, 120)),
+    "one_gaussian": (1, 3, 3, True, 1.0, (200, 120)),
+}
+
+
+def _bits(t):
+    """Bit pattern of a float32 or int32 tensor, so that NaNs and signed
+    zeros compare too."""
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("case", sorted(PROJECT_CASES))
+def test_project_kernel_matches_plain_bitwise(cuda, case):
+    P, degree, active, aa, modifier, (width, height) = PROJECT_CASES[case]
+    g = random_stored(P, max_sh_degree=degree, sh_degree=active, seed=P + degree, device=cuda)
+    R, t = look_at([0.3, -0.2, -4.0], [0.0, 0.0, 0.0])
+    cam = make_camera(R, t, 0.9, 0.9 * height / width, width, height, device=cuda)
+    kw = dict(sh_degree=degree, scale_modifier=modifier, antialiasing=aa)
+    before = _kernels.launches["project"]
+    out = pj.project_table(g, cam, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["project"] == before + 1
+    ref = pj.project_table_plain(g, cam, **kw)
+    assert torch.equal(_bits(out.fields), _bits(ref.fields))
+    assert torch.equal(out.radii, ref.radii)
+    for name, col in out.table._asdict().items():
+        assert torch.equal(_bits(col), _bits(getattr(ref.table, name))), name
+    assert int(out.total) == int(ref.total)
+    if "tall_rects" in case:  # visible Gaussians on the full-rect mapping
+        assert bool(((out.table.span_flag == 0) & (out.radii > 0)).any())
+
+
+def test_render_camera_fused_matches_plain_path_at_1080p(cuda):
+    """``render_camera`` through K8 against the render of the activated
+    tensors (the plain stage, then K1-K3): image, radii and slot demand
+    bitwise."""
+    g = random_stored(20000, max_sh_degree=3, sh_degree=3, seed=11, device=cuda)
+    model = GaussianModel(g.means3d, g.features_dc, g.features_rest, g.opacities, g.scales,
+                          g.quats, g.alive, max_sh_degree=3, sh_degree=3)
+    R, t = look_at([0.3, -0.2, -4.0], [0.0, 0.0, 0.0])
+    camera = SimpleNamespace(cam=make_camera(R, t, 0.9, 0.9 * 1080 / 1920, 1920, 1080,
+                                             device=cuda))
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    # the scene asks ~300 slots a Gaussian: one overflow retry, one K8 launch
+    # per attempt
+    raster = RasterizeConfig(instance_slack=256.0)
+    before = _kernels.launches["project"]
+    image, out, retries = render_camera(model, camera, raster, bg)
+    torch.cuda.synchronize()
+    assert retries == 1 and _kernels.launches["project"] == before + 2
+    plain = render(*model.activated_params(), camera.cam, bg, sh_degree=3,
+                   cfg=RasterizeConfig(instance_slack=512.0), inference=True)
+    assert _kernels.launches["project"] == before + 2
+    assert torch.equal(image, plain.image)
+    assert torch.equal(out.radii, plain.radii)
+    assert int(out.num_instances) == int(plain.num_instances)
+    assert float(image.std()) > 0.01
 
 
 # K3's edges: images whose sides are not multiples of 16, records wider than
@@ -287,8 +366,9 @@ def test_blend_backward_kernel_matches_plain_and_leaves_the_tail(cuda):
     sums in its twin's order."""
     _, proj = _scene_proj(cuda)
     gx, gy = _grid()
-    layout = inst.build_instances(proj, grid_x=gx, grid_y=gy,
-                                  capacity=inst.required_capacity(3000, 2.0), grad_layout=True)
+    layout = inst.build_instances(*inst.build_table(proj), grid_x=gx, grid_y=gy,
+                                  capacity=inst.required_capacity(3000, 2.0),
+                                  grad_layout=True)
     fields = blend_fields(proj)
     args = (layout.sorted_owner, layout.tile_starts, layout.tile_ends, fields)
     packed = bl.blend_forward(*args, grid_x=gx)

@@ -116,7 +116,7 @@ def _port_inputs(crop):
 def _slots(crop):
     """A slot capacity past the window's demand, the same in both packages."""
     degree = int(crop["sh_degree"])
-    proj = project(*_port_inputs(crop), state_crop_camera(crop, device="cpu"),
+    proj = project(_port_inputs(crop), state_crop_camera(crop, device="cpu"),
                    sh_degree=degree)
     return slot_capacity(int(proj.tiles_touched.sum()))
 
@@ -172,7 +172,7 @@ def test_render_matches_jax_pallas(crop, jax_render_and_grads, port_render_and_g
         np.testing.assert_allclose(getattr(out, name).detach().numpy(), ref, atol=2e-4,
                                    rtol=0, err_msg=name)
     np.testing.assert_array_equal(out.radii.numpy(), radii)
-    proj = project(*_port_inputs(crop), state_crop_camera(crop, device="cpu"),
+    proj = project(_port_inputs(crop), state_crop_camera(crop, device="cpu"),
                    sh_degree=int(crop["sh_degree"]))
     np.testing.assert_array_equal(proj.tiles_touched.numpy(), tiles)
     assert (out.radii > 0).all()  # the cut kept the Gaussians the window sees

@@ -7,6 +7,8 @@ rest against JAX ``render_dense``, which runs the same preprocess.  The models
 come from numpy through ``model_from_jax_params``, as a JAX-trained model
 would."""
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,10 +17,16 @@ import torch
 from gaussian_splatting_tpu.config import RasterizeConfig as JaxConfig
 from gaussian_splatting_tpu.ops import camera_math as jcm
 from gaussian_splatting_tpu.ops.rasterize import render as jax_render
+from gaussian_splatting_torch import _kernels
 from gaussian_splatting_torch.config import RasterizeConfig
 from gaussian_splatting_torch.interop import model_from_jax_params
 from gaussian_splatting_torch.ops import camera_math as tcm
-from gaussian_splatting_torch.ops.rasterize import _render, render
+from gaussian_splatting_torch.ops import project as pj
+from gaussian_splatting_torch.ops.instances import ProjectedTable, build_table
+from gaussian_splatting_torch.ops.rasterize import (
+    _render, blend_fields, project, render, render_stored,
+)
+from gaussian_splatting_torch.render import render_camera
 from gaussian_splatting_torch.utils.testing import random_arrays
 
 ATOL = 2e-4
@@ -176,3 +184,84 @@ def test_active_sh_degree_masks_higher_bands():
     sh_low = low.activated_params()[4]
     assert torch.equal(sh_low[:, :4], full.activated_params()[4][:, :4])
     assert not bool(sh_low[:, 4:].any())
+
+
+@pytest.mark.parametrize("route", ["inference", "under_grad", "compute_cov3D_python",
+                                   "convert_SHs_python"])
+def test_stored_tensors_take_the_fused_stage_only_without_grad_or_hooks(route):
+    """``project`` of a model's stored tensors: the fused stage's
+    ``ProjectedTable`` in an inference render, the plain ``preprocess``
+    under grad or with a debug hook; equal to the plain chain either way,
+    and no kernel launch on the CPU."""
+    params, alive = _model_inputs(200, 2, seed=23, dead=20)
+    model = model_from_jax_params(params, alive, max_sh_degree=2, sh_degree=1, device="cpu")
+    tcam, _ = _cameras(50, 35)
+    cfg = RasterizeConfig(**({route: True} if route.endswith("_python") else {}))
+    before = dict(_kernels.launches)
+    with torch.set_grad_enabled(route == "under_grad"):
+        proj = project(model.stored(), tcam, sh_degree=2, cfg=cfg, scale_modifier=0.9)
+    with torch.no_grad():
+        plain = project(model.activated_params(), tcam, sh_degree=2, cfg=cfg,
+                        scale_modifier=0.9)
+    assert isinstance(proj, ProjectedTable) == (route == "inference")
+    if route == "inference":
+        assert torch.equal(proj.fields, blend_fields(plain))
+        assert torch.equal(proj.radii, plain.radii)
+        table, total = build_table(plain)
+        for a, b in zip(proj.table, table):
+            assert torch.equal(a, b)
+        assert int(proj.total) == int(total)
+    else:
+        for a, b in zip(proj, plain):
+            assert torch.equal(a.detach(), b)
+        assert proj.means2d.requires_grad == (route == "under_grad")
+    assert _kernels.launches == before
+
+
+@pytest.mark.parametrize("case", ["plain", "antialiasing", "scale_modifier", "dense"])
+def test_stored_render_on_cpu_equals_the_render_of_activated_tensors(case):
+    """``render_camera`` and ``render_stored`` hand the model's stored
+    tensors over; on the CPU their render is the one of
+    ``activated_params`` bit for bit (active degree below the maximum,
+    dead slots), and within ``ATOL`` of JAX ``render_dense`` with the
+    bands above the active degree zeroed."""
+    params, alive = _model_inputs(300, 3, seed=24, dead=30)
+    model = model_from_jax_params(params, alive, max_sh_degree=3, sh_degree=2, device="cpu")
+    tcam, jcam = _cameras(64, 48)
+    bg = torch.tensor([0.2, 0.1, 0.4])
+    raster = RasterizeConfig(antialiasing=case == "antialiasing",
+                             impl="dense" if case == "dense" else "auto")
+    modifier = 0.8 if case == "scale_modifier" else 1.0
+    *jax_inputs, sh = _jax_activated(params, alive)
+    jout = jax_render(*jax_inputs, sh.at[:, 9:].set(0.0), jcam, jnp.asarray(bg.numpy()),
+                      sh_degree=3, cfg=JaxConfig(antialiasing=case == "antialiasing"),
+                      scale_modifier=modifier, impl="dense", inference=True)
+    ref = render(*model.activated_params(), tcam, bg, sh_degree=3, cfg=raster,
+                 scale_modifier=modifier, inference=True)
+    if modifier == 1.0:
+        image, out, retries = render_camera(model, SimpleNamespace(cam=tcam), raster, bg)
+        assert retries == 0 and torch.equal(image, ref.image)
+    else:
+        out = render_stored(model.stored(), tcam, bg, sh_degree=3, cfg=raster,
+                            scale_modifier=modifier)
+    for name in ("image", "invdepth", "final_T", "radii", "visibility", "num_instances"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    _check(out, jout)
+
+
+@pytest.mark.parametrize("P", [1, 127, 1000])
+def test_fused_stage_outputs_are_aligned_disjoint_views_of_one_block(P):
+    """K8's outputs but the radii share one allocation: each part has its
+    shape and dtype, is contiguous, starts on a 16-byte boundary (K8's
+    16-byte stores) and overlaps no other."""
+    parts = pj._outputs(P, torch.device("cpu"))
+    shapes = [(P + 1,), (P, 10), (P,), (P,), (P,), (P,), (P, 16), (P, 16), (P,)]
+    dtypes = [torch.int64, torch.float32] + [torch.int32] * 6 + [torch.float32]
+    base = parts[0].untyped_storage().data_ptr()
+    spans = []
+    for t, shape, dtype in zip(parts, shapes, dtypes, strict=True):
+        assert t.shape == shape and t.dtype == dtype and t.is_contiguous()
+        assert t.data_ptr() % 16 == 0 and t.untyped_storage().data_ptr() == base
+        spans.append((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))

@@ -100,8 +100,9 @@ def test_warp_emulation_matches_plain_on_a_scene():
     s = random_scene(600, sh_degree=0, width=128, height=96, seed=5,
                      scale_range=(0.03, 0.25), device="cpu")
     proj = preprocess(s.means3d, s.scales, s.quats, s.opacities, s.sh, s.cam, sh_degree=0)
-    layout = inst.build_instances(proj, grid_x=8, grid_y=6,
-                                  capacity=inst.required_capacity(600, 3.0), grad_layout=True)
+    layout = inst.build_instances(*inst.build_table(proj), grid_x=8, grid_y=6,
+                                  capacity=inst.required_capacity(600, 3.0),
+                                  grad_layout=True)
     offsets = layout.seg_offsets
     lengths = offsets[1:] - offsets[:-1]
     # warps whose rows span more than one window

@@ -201,7 +201,7 @@ def test_render_custom_cam_returns_the_frame_past_slack_512(monkeypatch):
         image = torch.full((3, H, W), 0.25)
         return SimpleNamespace(image=image, overflow=torch.tensor(True))
 
-    monkeypatch.setattr(rasterize, "render", overflowing)
+    monkeypatch.setattr(rasterize, "render_stored", overflowing)
     image = loop.render_custom_cam(ours, cam, np.zeros(3), raster=real(instance_slack=100.0))
     assert slacks == [100.0, 200.0, 400.0, 800.0]
     assert torch.equal(image, torch.full((3, H, W), 0.25))

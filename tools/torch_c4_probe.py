@@ -63,7 +63,7 @@ def cut(ply: str, scene_dir: str, out: str, device="cuda", iteration: int = SNAP
         fovx, fovy, x0, y0 = crop_fovs(view.width, view.height, view.fovx, view.fovy, w, h)
         cam = make_camera(view.R, view.T, fovx, fovy, w, h, device=device)
         with torch.no_grad():
-            radii = project(*model.activated_params(), cam, sh_degree=SH_DEGREE).radii
+            radii = project(model.activated_params(), cam, sh_degree=SH_DEGREE).radii
         keep = alive & (radii.cpu().numpy() > 0)
         print(f"[c4] a {w}x{h} window keeps {keep.sum()} Gaussians")
         if keep.sum() > MAX_GAUSSIANS:
